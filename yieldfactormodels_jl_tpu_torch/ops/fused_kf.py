@@ -1,0 +1,160 @@
+"""Fused batched univariate Kalman log-likelihood — a hand-written CUDA kernel.
+
+Counterpart of ``yieldfactormodels_jl_tpu/ops/pallas_kf.py``.  The kernel,
+``csrc/fused_kf.cu``, replaces the Pallas TPU kernel ``pallas_kf._kernel``:
+one CUDA thread per parameter draw runs the whole T-step sequential-
+observation recursion in registers, the shared panel staged through shared
+memory.  As in the JAX package, unpacking, the unconditional start and the
+Z/d setup stay batched tensor ops outside the kernel.
+
+``batched_loglik`` takes a (B, n_params) batch of *constrained* draws and an
+(N, T) panel and returns (B,) logliks, computing in float32 as the JAX entry
+point does.  On CUDA tensors it launches the kernel (or raises); on CPU
+tensors it runs the plain version, :func:`batched_loglik_reference` — the
+batched univariate recursion of ``ops/univariate_kf``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import config
+from ..models.kalman import (init_state, loglik_contrib_mask, measurement_setup,
+                             observed_mask)
+from ..models.params import unpack_kalman
+from ..models.specs import ModelSpec
+from . import univariate_kf
+from ._build import load
+
+_FAMILIES = ("kalman_dns", "kalman_afns", "kalman_tvl")
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+
+def _prepare(spec: ModelSpec, params_batch, data, starts, ends, device, dtype):
+    """Validate (JAX's errors) and put the inputs on one device in ``dtype``."""
+    if spec.family not in _FAMILIES:
+        raise ValueError(f"fused kernel supports the kalman families, "
+                         f"not {spec.family!r}")
+    params = config.as_tensor(params_batch, device, dtype)
+    if params.ndim != 2 or params.shape[1] != spec.n_params:
+        raise ValueError(f"params_batch must be (B, {spec.n_params}); "
+                         f"got {tuple(params.shape)}")
+    data = config.as_tensor(data, params.device, dtype)
+    if data.ndim != 2 or data.shape[0] != spec.N:
+        raise ValueError(f"data must be (N={spec.N}, T); got {tuple(data.shape)}")
+    if (starts is None) != (ends is None):
+        raise ValueError("starts and ends must be given together")
+    if starts is not None:
+        B = params.shape[0]
+        starts = torch.as_tensor(starts, device=params.device).reshape(B)
+        ends = torch.as_tensor(ends, device=params.device).reshape(B)
+    return params, data, starts, ends
+
+
+def batched_loglik_reference(spec: ModelSpec, params_batch, data, start=0,
+                             end=None, starts=None, ends=None):
+    """The plain PyTorch version of the kernel: the batched univariate
+    recursion on the tensors' own device and dtype.  ``starts``/``ends``
+    (B,) give each draw its own [start, end); the scalars are then ignored."""
+    if starts is not None:
+        start, end = starts, ends
+    return univariate_kf.get_loss(spec, params_batch, data, start, end)
+
+
+def _lay(x, B):
+    """(B, ...) draw-major -> (D, B) draw-minor, contiguous."""
+    return x.reshape(B, -1).T.contiguous()
+
+
+class KernelInputs(NamedTuple):
+    """What one launch reads and writes: the C entry point's integer
+    arguments, its buffers in argument order (``None`` for an unused one),
+    and the output it fills."""
+    ints: tuple
+    buffers: tuple
+    out: torch.Tensor
+
+
+def kernel_inputs(spec: ModelSpec, params, data, start, end, starts=None,
+                  ends=None) -> KernelInputs:
+    """Unpack, start and lay out a batch for the kernel, as tensor ops on the
+    inputs' device (the part ``pallas_kf.batched_loglik`` also runs outside
+    its ``pallas_call``)."""
+    B = params.shape[0]
+    N, T = data.shape
+    Ms = spec.state_dim
+    dtype, device = params.dtype, params.device
+    tvl = spec.family == "kalman_tvl"
+
+    kp = unpack_kalman(spec, params)
+    state0 = init_state(spec, kp)
+    if tvl:  # state-dependent measurement: rows are built in the kernel
+        Z = d = None
+        mats = spec.maturities_array(device, dtype)
+    else:
+        Zc, dc = measurement_setup(spec, kp, dtype)
+        Z = _lay(Zc, B)
+        d = _lay(dc, B) if dc is not None else torch.zeros(
+            N, B, dtype=dtype, device=device)
+        mats = None
+    masks = torch.stack([observed_mask(start, end, T, device),
+                         loglik_contrib_mask(start, end, T, device)],
+                        dim=1).to(torch.uint8).contiguous()
+    win = None
+    if starts is not None:
+        win = torch.stack([starts, ends]).to(torch.int32).contiguous()
+
+    buffers = (Z, d, _lay(kp.Phi, B), _lay(kp.delta, B),
+               _lay(kp.Omega_state, B), _lay(kp.obs_var, B),
+               _lay(state0.beta, B), _lay(state0.P, B), data.T.contiguous(),
+               masks, win, mats)
+    ints = (_DTYPE_CODES[dtype], Ms, int(tvl), int(spec.exact_jacobian), B, N, T)
+    return KernelInputs(ints, buffers, torch.empty(B, dtype=dtype, device=device))
+
+
+def launch(inputs: KernelInputs) -> torch.Tensor:
+    """One launch of the CUDA kernel on PyTorch's current stream; returns
+    ``inputs.out``.  Raises if the launch is refused."""
+    out = inputs.out
+    ptrs = [None if x is None else x.data_ptr() for x in inputs.buffers]
+    lib = load("fused_kf")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.yfm_fused_kf(*inputs.ints, *ptrs, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_kf kernel launch failed: cudaError {err}")
+    batched_loglik.launches += 1
+    return out
+
+
+def _batched_loglik(spec: ModelSpec, params_batch, data, start=0, end=None,
+                    starts=None, ends=None, device=None, dtype=torch.float32):
+    params, data, starts, ends = _prepare(spec, params_batch, data, starts,
+                                          ends, device, dtype)
+    if end is None:
+        end = data.shape[1]
+    if params.device.type == "cpu":
+        return batched_loglik_reference(spec, params, data, start, end,
+                                        starts, ends)
+    if params.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {params.device}")
+    return launch(kernel_inputs(spec, params, data, start, end, starts, ends))
+
+
+def batched_loglik(spec: ModelSpec, params_batch, data, start=0, end=None,
+                   starts=None, ends=None, device=None):
+    """Gaussian loglik for a batch of parameter draws, (B,), in float32.
+
+    Numerically equivalent to the univariate engine for every Kalman family
+    (DNS/AFNS with constant measurement, the TVλ EKF).  ``starts``/``ends``:
+    optional (B,) per-draw estimation windows; when given, the scalar
+    ``start``/``end`` are ignored.  Numpy input goes to ``device`` (``None``
+    means CUDA); tensors stay where they are."""
+    return _batched_loglik(spec, params_batch, data, start, end, starts, ends,
+                           device, torch.float32)
+
+
+#: kernel launches since the count was last set to 0
+batched_loglik.launches = 0
