@@ -25,7 +25,24 @@ Phases (any failure raises and the script exits non-zero):
 4. forecast — predict from the best draw with a 12-column NaN tail on the
    card against the same call on the CPU, both float64, at rtol 1e-9.
 5. timing — CUDA events around repeated launches after a warm-up, at
-   B=1024 and B=16384; the plain version once, for information.
+   B=1024 and B=16384, for K1, K2f and K2b, and value-and-gradient evals/s
+   through the fused objective; the plain versions once, for information.
+6. gradient pair at full width — AFNS5, B=1024: raw draws through the fused
+   objective's value-and-gradient (K2f + K2b, launch counts 1 and 1, plain
+   versions 0), the float32 value against K1 at rtol 5e-4, atol 1e-2, the
+   float32 gradient against the plain float64 adjoint by bench.py's
+   direction-and-norm criterion (cosine > 0.999, norm ratio within 5% per
+   finite draw), the float64 kernels against the plain float64 versions at
+   value rtol 1e-9 and gradient rtol 1e-6, and the plain float64 adjoint
+   against autograd of the plain recursion at B=64; then the same at "1C"
+   with interior NaN columns, an invalid draw and per-draw windows, B=2048.
+7. the fused MLE — ``estimate`` on AFNS5, N=20, T=360, S=256 starts (bench's
+   draws, the make_panel panel), max_iters=50, with the launch counts set to
+   0 just before it: K1 ≥ 1, K2f = K2b = the number of value-and-gradient
+   calls, plain versions 0; the result finite, no worse than the best start
+   and through the trust-but-verify re-evaluation.  Then a small "1C" fit
+   on which the optimizer moves (N=6, T=60, S=3) on the card against the
+   same call on the CPU.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON object {"kernels": [...]} with each kernel's launches on the
@@ -158,29 +175,133 @@ def close(got, ref, rtol, atol, what):
     return float(err.max()) if err.size else 0.0
 
 
-def kernel_work(inputs, data):
-    """(bytes, flops) the fused loglik must move and compute for one launch:
-    every input read once and the output written once; floating-point
-    operations of the scalar measurement updates on the steps this run's
-    masks observe (each draw's own window where given) and of the symmetrize
-    + transition on every step."""
-    bytes_ = sum(x.numel() * x.element_size() for x in inputs.buffers
-                 if x is not None) + inputs.out.numel() * inputs.out.element_size()
-    _, Ms, tvl, _, B, N, T = inputs.ints
-    masks, win = inputs.buffers[9], inputs.buffers[10]
+def observed_steps(B, T, masks, win, data):
+    """Draw-steps the kernels run the measurement chain on: in the window
+    (each draw's own where given) and with a fully finite column."""
     finite_col = data.isfinite().all(0).cpu()
     if win is None:
-        obs_steps = int((masks[:, 0].bool().cpu() & finite_col).sum()) * B
-    else:
-        t = torch.arange(T)
-        lo, hi = win[0].cpu()[:, None], win[1].cpu()[:, None]
-        obs_steps = int((((t >= lo) & (t < hi)) & finite_col).sum())
-    # per observation: zP 2Ms², f 2Ms+1, pred 2Ms+1, K Ms, β 2Ms, P 2Ms²,
-    # loglik 6 (log, divide, 4 mul/add); TVλ rows add ≈ 20 (exp, 2 divides)
+        return int((masks[:, 0].bool().cpu() & finite_col).sum()) * B
+    t = torch.arange(T)
+    lo, hi = win[0].cpu()[:, None], win[1].cpu()[:, None]
+    return int((((t >= lo) & (t < hi)) & finite_col).sum())
+
+
+def loglik_flops(Ms, B, N, T, obs_steps, tvl=False):
+    """Floating-point operations of one loglik pass: the scalar measurement
+    updates on the observed draw-steps, the symmetrize + transition on every
+    step.  Per observation: zP 2Ms², f 2Ms+1, pred 2Ms+1, K Ms, β 2Ms, P 2Ms²,
+    loglik 6 (log, divide, 4 mul/add); TVλ rows add ≈ 20 (exp, 2 divides)."""
     per_obs = 4 * Ms * Ms + 7 * Ms + 8 + (20 if tvl else 0)
     per_step = Ms * Ms + 2 * Ms * Ms + 4 * Ms ** 3 + 2 * Ms * Ms  # sym, β, ΦPΦᵀ+Ω
-    flops = obs_steps * N * per_obs + B * T * per_step
-    return bytes_, flops
+    return obs_steps * N * per_obs + B * T * per_step
+
+
+def kernel_work(inputs, data):
+    """(bytes, flops) the fused loglik must move and compute for one launch:
+    every input read once and the output written once; the operations of
+    :func:`loglik_flops` on the steps this run's masks observe (each draw's
+    own window where given)."""
+    _, Ms, tvl, _, B, N, T = inputs.ints
+    obs = observed_steps(B, T, inputs.buffers[9], inputs.buffers[10], data)
+    return nbytes(*inputs.buffers, inputs.out), loglik_flops(Ms, B, N, T, obs, tvl)
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors if x is not None)
+
+
+def grad_kernel_work(bufs, data, out, chk, grads):
+    """(bytes, flops) of K2f and of K2b for one launch on these buffers:
+    each input read once, each output written once.  K2f does K1's
+    operations; K2b recomputes the forward, runs the chain once more on each
+    observed step, then the adjoint: per observed update zP, f, v, K again
+    plus K̄, z̄P, v̄, f̄ and the ∂Z, ∂d, P̄ updates (10Ms²+21Ms+16), per step
+    the transition adjoint Φ̄, β̄_m, P̄_m (9Ms³+7Ms²+Ms)."""
+    Ms, B = bufs[3].shape
+    T, N = bufs[8].shape
+    obs = observed_steps(B, T, bufs[9], bufs[10], data)
+    fwd = loglik_flops(Ms, B, N, T, obs)
+    bwd = (2 * fwd + obs * N * (10 * Ms * Ms + 21 * Ms + 16)
+           + B * T * (9 * Ms ** 3 + 7 * Ms * Ms + Ms))
+    fwd_bytes = nbytes(*bufs, out, chk)
+    bwd_bytes = nbytes(*bufs[:6], *bufs[8:], chk, out, *grads)
+    return (fwd_bytes, fwd), (bwd_bytes, bwd)
+
+
+def bound(bytes_, flops):
+    """(bound ms, what bounds it) on the H100's published float32 peaks."""
+    by_bytes, by_ops = bytes_ / PEAK_BYTES, flops / PEAK_FP32_FLOPS
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes > by_ops else "operations"
+
+
+class PlainCore(torch.autograd.Function):
+    """The plain versions of K2f and K2b as one autograd Function, on any
+    device: the reference the kernels are held against on the card."""
+
+    @staticmethod
+    def forward(ctx, Z, d, Phi, delta, Om, ovar, beta0, P0, data, masks, win):
+        from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+        ll, chk = G.forward_reference(Z, d, Phi, delta, Om, ovar, beta0, P0,
+                                      data, masks, win)
+        ctx.win = win
+        ctx.save_for_backward(Z, d, Phi, delta, Om, ovar, data, masks, chk, ll)
+        return ll
+
+    @staticmethod
+    def backward(ctx, g):
+        from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+        Z, d, Phi, delta, Om, ovar, data, masks, chk, ll = ctx.saved_tensors
+        g = torch.where(torch.isfinite(ll), g, torch.zeros_like(g))
+        grads = G.adjoint_reference(Z, d, Phi, delta, Om, ovar, data, masks,
+                                    ctx.win, chk, g)
+        return (*grads, None, None, None)
+
+
+def raw_value_and_grad(yfm, spec, X, data, core, win=None):
+    """The MLE objective −ll (clamped to 1e12) at raw parameters X and its
+    gradient, through ``core`` (the kernels, the plain versions, or the plain
+    forward under autograd), in X's float type."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    X = X.detach().requires_grad_(True)
+    kw = {} if win is None else {"starts": win[0], "ends": win[1]}
+    args = G.core_inputs(spec, yfm.transform_params(spec, X), data, 0,
+                         data.shape[1], **kw)
+    ll = core(*args)
+    v = torch.where(torch.isfinite(ll), -ll, torch.full_like(ll, 1e12))
+    (g,) = torch.autograd.grad(v, X, torch.ones_like(v))
+    return v.detach(), torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+
+
+def grad_agreement(g_a, g_b, what, cos_min=0.999, norm_tol=0.05):
+    """bench.py's direction-and-norm criterion (benchmarks/common.py): per
+    draw, cosine > cos_min and |‖g_a‖/‖g_b‖ − 1| < norm_tol; returns the
+    worst (1 − cosine, norm ratio error)."""
+    g_a, g_b = g_a.double().cpu(), g_b.double().cpu()
+    check(g_a.shape[0] > 0, f"{what}: no finite draws")
+    na, nb = g_a.norm(dim=1), g_b.norm(dim=1)
+    cos = (g_a * g_b).sum(1) / torch.clamp(na * nb, min=1e-12)
+    ratio = (na / torch.clamp(nb, min=1e-12) - 1).abs()
+    check(bool(cos.min() > cos_min) and bool((ratio < norm_tol).all()),
+          f"{what}: cos_min {cos.min():.6f}, norm_ratio_max {ratio.max():.3f}")
+    print(f"  {what}: ok, cos_min {cos.min():.9f}, norm ratio max "
+          f"{ratio.max():.3e} ({g_a.shape[0]} draws)")
+    return float(1 - cos.min()), float(ratio.max())
+
+
+def grads_close(got, ref, rtol, what):
+    """Per-draw gradients within rtol of the reference, relative to each
+    draw's largest component (the components span many decades)."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    scale = ref.abs().amax(1, keepdim=True)
+    err = (got - ref).abs()
+    check(bool((err <= rtol * (ref.abs() + scale)).all()),
+          f"{what}: max relative error {(err / scale).max():.3e} > {rtol}")
+    print(f"  {what}: ok, max error / draw scale {(err / scale).max():.3e} "
+          f"(rtol={rtol})")
+    return float(err.max())
 
 
 def chain_ms(Ms, N, T, clock_mhz):
@@ -225,7 +346,9 @@ def main(json_path=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
+    from yieldfactormodels_jl_tpu_torch.estimation import optimize
     from yieldfactormodels_jl_tpu_torch.ops import _build, fused_kf
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full-precision references
     torch.backends.cudnn.allow_tf32 = False
@@ -350,9 +473,10 @@ def main(json_path=None) -> int:
 
     # ---- 5. timing ---------------------------------------------------------------
     print("[5] timing (CUDA events)")
-    shapes = {}
+    shapes, grad_shapes = {}, {}
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     panel32 = torch.as_tensor(panel, device=dev, dtype=f32)
+    _, vag32 = optimize.fused_objectives(spec, panel32, 0, T_MONTHS)
     for B in sizes:
         p32 = cons[B].to(f32)
         inputs = fused_kf.kernel_inputs(spec, p32, panel32, 0, T_MONTHS)
@@ -361,19 +485,196 @@ def main(json_path=None) -> int:
         plain_ms = cuda_ms(lambda: fused_kf.batched_loglik_reference(spec, p32, panel32),
                            reps=1, warmup=1)
         bytes_, flops = kernel_work(inputs, panel32)
-        bound_ms = max(bytes_ / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
+        bound_ms, bound_by = bound(bytes_, flops)
         shapes[str(B)] = {
             "ms": ms, "entry_ms": entry_ms, "plain_ms": plain_ms,
             "evals_per_s": B / (ms * 1e-3), "bytes": bytes_, "flops": flops,
-            "bound_ms": bound_ms,
-            "chain_ms": chain_ms(spec.state_dim, N_MATURITIES, T_MONTHS, clock_mhz),
-            "bound_by": "bytes" if bytes_ / PEAK_BYTES > flops / PEAK_FP32_FLOPS
-            else "operations"}
-        print(f"  B={B}: kernel {ms:.4f} ms ({B / (ms * 1e-3):.0f} evals/s), "
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "chain_ms": chain_ms(spec.state_dim, N_MATURITIES, T_MONTHS, clock_mhz)}
+        print(f"  K1 B={B}: kernel {ms:.4f} ms ({B / (ms * 1e-3):.0f} evals/s), "
               f"entry point {entry_ms:.4f} ms, plain {plain_ms:.1f} ms, "
               f"bound {bound_ms:.4f} ms ({flops / B:.0f} flop/draw), "
               f"serial-chain estimate {shapes[str(B)]['chain_ms']:.4f} ms")
+
+        args = G.core_inputs(spec, p32, panel32, 0, T_MONTHS)
+        bufs = G.lay_out(*args)
+        out, chk = G.launch_forward(bufs)
+        g = torch.ones(B, device=dev, dtype=f32)
+        grads = G.launch_backward(bufs, chk, g)
+        fwd_ms = cuda_ms(lambda: G.launch_forward(bufs), reps=10)
+        bwd_ms = cuda_ms(lambda: G.launch_backward(bufs, chk, g), reps=5)
+        plain = [a.detach() if a is not None else None for a in args]
+        fwd_plain_ms = cuda_ms(lambda: G.forward_reference(*plain), reps=1, warmup=0)
+        chk_plain = G.forward_reference(*plain)[1]
+        bwd_plain_ms = cuda_ms(lambda: G.adjoint_reference(
+            *plain[:6], *plain[8:], chk_plain, g), reps=1, warmup=0)
+        X = yfm.untransform_params(spec, p32)
+        vag_ms = cuda_ms(lambda: vag32(X), reps=5, warmup=2)
+        (fb, ff), (bb, bf) = grad_kernel_work(bufs, panel32, out, chk, grads)
+        f_bound, f_by = bound(fb, ff)
+        b_bound, b_by = bound(bb, bf)
+        grad_shapes[str(B)] = {
+            "K2f": {"ms": fwd_ms, "plain_ms": fwd_plain_ms, "bytes": fb, "flops": ff,
+                    "bound_ms": f_bound, "bound_by": f_by},
+            "K2b": {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bytes": bb, "flops": bf,
+                    "bound_ms": b_bound, "bound_by": b_by},
+            "value_and_grad_ms": vag_ms, "grad_evals_per_s": B / (vag_ms * 1e-3)}
+        print(f"  K2f B={B}: kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.1f} ms, "
+              f"bound {f_bound:.4f} ms ({f_by})")
+        print(f"  K2b B={B}: kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.1f} ms, "
+              f"bound {b_bound:.4f} ms ({b_by}; {bf / B:.0f} flop/draw)")
+        print(f"  value-and-gradient through the fused objective B={B}: "
+              f"{vag_ms:.4f} ms ({B / (vag_ms * 1e-3):.0f} grad evals/s)")
     report["shapes"] = shapes
+    report["grad_shapes"] = grad_shapes
+
+    # ---- 6. gradient pair at full width ----------------------------------------
+    print("[6] gradient pair: K2f + K2b against the plain versions")
+    grad_errs = {"K2f": [], "K2b": []}
+    wins = torch.as_tensor(rng.integers(0, 100, 2048), device=dev), \
+        torch.as_tensor(rng.integers(200, T_MONTHS + 1, 2048), device=dev)
+    dns32, _ = yfm.create_model("1C", MATURITIES)
+    p_dns = kalman_draws(dns64, 2048, rng, [0.4, -0.1, 0.05])
+    p_dns[5] = np.nan                                  # invalid draw
+    grad_cases = [
+        ("AFNS5 B=1024", spec, spec64, draws[1024], panel, None),
+        ('"1C" NaN columns, invalid draw, per-draw windows, B=2048', dns32, dns64,
+         torch.as_tensor(p_dns, device=dev), gapped, wins),
+    ]
+    for what, s32, s64, p64, data_np, win in grad_cases:
+        data32 = torch.as_tensor(data_np, device=dev, dtype=f32)
+        data64 = torch.as_tensor(data_np, device=dev, dtype=f64)
+        X64 = yfm.untransform_params(s64, p64)
+        X32 = X64.to(f32)
+        kw = {} if win is None else {"win_starts": win[0], "win_ends": win[1]}
+        value_fn, vag = optimize.fused_objectives(s32, data32, 0, T_MONTHS, **kw)
+        G.launch_forward.launches = G.launch_backward.launches = 0
+        G.forward_reference.calls = G.adjoint_reference.calls = 0
+        v32, g32 = vag(X32)
+        torch.cuda.synchronize()
+        n = (G.launch_forward.launches, G.launch_backward.launches,
+             G.forward_reference.calls, G.adjoint_reference.calls)
+        print(f"  {what}: K2f, K2b launches {n[:2]}, plain-version calls {n[2:]}")
+        check(n == (1, 1, 0, 0), f"{what}: launches/plain calls {n}")
+        v_k1 = value_fn(X32)
+        fin = v32 < optimize.PENALTY_THRESH
+        check(torch.equal(fin, v_k1 < optimize.PENALTY_THRESH), f"{what}: K2f and K1 disagree on validity")
+        close(v32[fin], v_k1[fin], 5e-4, 1e-2, f"{what}: f32 K2f value vs K1")
+        v_ref, g_ref = raw_value_and_grad(yfm, s64, X64, data64, PlainCore.apply, win)
+        check(torch.equal(fin, v_ref < optimize.PENALTY_THRESH), f"{what}: validity differs from plain")
+        grad_errs["K2f"].append(close(v32[fin], v_ref[fin], 5e-4, 1e-2,
+                                      f"{what}: f32 value vs plain f64"))
+        cos_err, ratio_err = grad_agreement(g32[fin], g_ref[fin],
+                                            f"{what}: f32 gradient vs plain f64")
+        grad_errs["K2b"].append({"max_one_minus_cos": cos_err,
+                                 "max_norm_ratio_err": ratio_err,
+                                 "max_abs_err": float((g32[fin].double()
+                                                       - g_ref[fin]).abs().max())})
+        v64, g64 = raw_value_and_grad(yfm, s64, X64, data64, G._KalmanCore.apply, win)
+        close(v64[fin], v_ref[fin], 1e-9, 0.0, f"{what}: f64 kernels value vs plain f64")
+        grads_close(g64[fin], g_ref[fin], 1e-6, f"{what}: f64 kernels gradient vs plain f64")
+        if win is not None:
+            bad = (~fin).nonzero().flatten().tolist()
+            check(bad == [5], f"{what}: invalid draws {bad}, expected [5]")
+            check(bool((g32[5] == 0).all()) and bool(torch.isfinite(v_k1[4])),
+                  "invalid draw: gradient row must be 0 and its neighbour finite")
+        else:
+            sub = slice(0, 64)
+            _, g_auto = raw_value_and_grad(
+                yfm, s64, X64[sub], data64,
+                lambda *a: G.forward_reference(*a)[0])
+            grads_close(g_ref[sub], g_auto, 1e-6,
+                        f"{what}: plain f64 adjoint vs autograd of the plain recursion, B=64")
+
+    # ---- 7. the fused MLE ----------------------------------------------------------
+    print("[7] estimate: AFNS5, N=20, T=360, S=256, max_iters=50")
+    S = 256
+    starts = make_param_batch(spec.n_params, S, seed=11)
+    # the starts as estimate makes them: untransformed on the host in float64
+    raw0 = optimize._sanitize(yfm.untransform_params(spec, torch.as_tensor(starts)))
+    raw0 = torch.as_tensor(raw0, device=dev, dtype=f32)
+    best_start = float((-optimize.fused_objectives(spec, panel32, 0, T_MONTHS)[0](raw0)).max())
+    grad_calls = [0]
+    make_objectives = optimize.fused_objectives
+
+    def counted_objectives(*a, **k):
+        value_fn, vag = make_objectives(*a, **k)
+
+        def counted(X):
+            grad_calls[0] += 1
+            return vag(X)
+        return value_fn, counted
+
+    optimize.fused_objectives = counted_objectives
+    try:
+        fused_kf.batched_loglik.launches = 0
+        G.launch_forward.launches = G.launch_backward.launches = 0
+        G.forward_reference.calls = G.adjoint_reference.calls = 0
+        fused_kf.batched_loglik_reference.calls = 0
+        t0 = time.perf_counter()
+        _, ll_fit, best_p, conv = yfm.estimate(spec, panel, starts.T, max_iters=50)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = {"K1": fused_kf.batched_loglik.launches,
+                  "K2f": G.launch_forward.launches, "K2b": G.launch_backward.launches,
+                  "value_and_grad_calls": grad_calls[0],
+                  "plain": (G.forward_reference.calls, G.adjoint_reference.calls,
+                            fused_kf.batched_loglik_reference.calls)}
+    finally:
+        optimize.fused_objectives = make_objectives
+    fit_report = yfm.last_multistart_report()
+    print(f"  main path: {counts}")
+    check(counts["K1"] >= 1, "the Armijo probes never launched K1")
+    check(counts["K2f"] == counts["K2b"] == counts["value_and_grad_calls"] >= 1,
+          f"K2f/K2b launches differ from the value-and-gradient calls: {counts}")
+    check(counts["plain"] == (0, 0, 0), f"plain versions ran on the card: {counts}")
+    check(math.isfinite(ll_fit), f"estimate: non-finite ll {ll_fit}")
+    # K1 (the starts' values here) and K2f (the optimizer's) are separate
+    # kernels of one float32 recursion: allow their rounding, rtol 1e-6
+    check(ll_fit >= best_start - 1e-6 * abs(best_start),
+          f"estimate: ll {ll_fit} below the best start's {best_start}")
+    iters = fit_report["iters"]
+    moved = sum(i > 0 for i in iters)
+    # the share of the wall that the trust-but-verify re-evaluation takes:
+    # the same plain-engine call on the winner, timed again
+    t0 = time.perf_counter()
+    yfm.get_loss(spec, best_p, panel)
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    print(f"  ll {ll_fit:.4f} (best start {best_start:.4f}), {conv}, "
+          f"iterations max {max(iters)}, starts that moved {moved}/{S}, "
+          f"wall {fit_s:.2f} s (the plain re-evaluation alone {verify_s:.2f} s); "
+          f"trust-but-verify passed")
+    report["estimate"] = {"S": S, "ll": ll_fit, "best_start_ll": best_start,
+                          "iterations_max": max(iters), "starts_moved": moved,
+                          "converged": bool(conv), "wall_s": fit_s,
+                          "verify_s": verify_s, "counts": counts}
+
+    print('  "1C", N=6, T=60, S=3: the card against the CPU')
+    mats6 = tuple(np.array([3, 12, 36, 84, 180, 360]) / 12.0)
+    s6, _ = yfm.create_model("1C", mats6)
+    r6 = np.random.default_rng(0)
+    data6 = 0.5 * r6.standard_normal((6, 60))
+    # a panel of unit scale, on which the first steepest-descent step can
+    # pass the Armijo test (tests/test_torch_estimation.py's 1C MLE)
+    base6 = np.zeros(s6.n_params)
+    base6[s6.layout["gamma"][0]] = math.log(0.49)
+    base6[s6.layout["obs_var"][0]] = 0.25
+    base6[2:8] = [0.3, 0.01, 0.3, 0.01, 0.01, 0.3]      # chol, column by column
+    base6[s6.layout["phi"][0]:] = (0.5 * np.eye(3)).reshape(-1)
+    starts6 = np.stack([base6 * (1 + 0.05 * r6.standard_normal(s6.n_params))
+                        for _ in range(3)], axis=1)
+    raw6 = yfm.untransform_params(s6, torch.as_tensor(starts6.T)).to(f32)
+    best6 = float((-optimize.fused_objectives(s6, torch.as_tensor(data6, dtype=f32),
+                                              0, 60)[0](raw6)).max())
+    _, ll_card, _, conv_card = yfm.estimate(s6, data6, starts6, max_iters=20)
+    _, ll_cpu, _, conv_cpu = yfm.estimate(s6, data6, starts6, max_iters=20, device="cpu")
+    print(f"  card ll {ll_card:.6f} ({conv_card}), CPU ll {ll_cpu:.6f} ({conv_cpu}), "
+          f"best start {best6:.6f}")
+    check(conv_card.iterations > 0 and ll_card > best6,
+          "the small fit did not move on the card")
+    check(abs(ll_card - ll_cpu) <= 1e-3 * abs(ll_cpu),
+          "the small fit on the card and on the CPU differ by more than rtol 1e-3")
 
     head = shapes["1024"]
     kernels = [{
@@ -385,6 +686,22 @@ def main(json_path=None) -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "shapes": shapes,
     }]
+    for name, replaces, err in (
+            ("K2f", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:127",
+             max(grad_errs["K2f"])),
+            ("K2b", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:181",
+             max(e["max_abs_err"] for e in grad_errs["K2b"]))):
+        k = grad_shapes["1024"][name]
+        kernels.append({
+            "name": f"{name} fused_kf_grad", "route": "cuda",
+            "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_kf_grad.cu",
+            "replaces": replaces, "launches": counts[name], "max_abs_err": err,
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+            "shapes": {B: v[name] for B, v in grad_shapes.items()}})
+    kernels[-1]["gradient_criterion"] = {
+        key: max(e[key] for e in grad_errs["K2b"])
+        for key in ("max_one_minus_cos", "max_norm_ratio_err")}
     report["kernels"] = kernels
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)

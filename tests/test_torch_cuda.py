@@ -71,3 +71,83 @@ def test_fused_kf_matches_plain_version(card, code):
         assert ref[7] == -np.inf and got[7].item() == -np.inf
         np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=5e-4, atol=1e-2)
         np.testing.assert_allclose(got64.cpu().numpy(), ref, rtol=1e-9)
+
+
+def _raw_value_and_grad(spec, p, data, dtype, **kw):
+    pt = p.detach().to(dtype).requires_grad_(True)
+    v = P.batched_loglik_diff(spec, pt, data.to(dtype), dtype=dtype, **kw)
+    (g,) = torch.autograd.grad(v.sum(), pt)
+    return v.detach(), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["1C", "AFNS3", "AFNS5"])
+def test_fused_kf_grad_matches_plain_versions(card, code):
+    """K2f/K2b through autograd against the plain versions on the CPU, in
+    float64 at value rtol 1e-9 and gradient rtol 1e-6 (relative to each
+    draw's largest component), and in float32 by bench.py's direction and
+    norm criterion (cosine > 0.999, norm within 5%)."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad
+
+    rng = np.random.default_rng(1)
+    spec, _ = P.create_model(code, MATS, float_type="float64")
+    B, T = 200, 29
+    p = _draws(spec, B, rng)
+    p[3] = np.nan                                   # must give −inf
+    data = 0.5 * rng.standard_normal((len(MATS), T)) + 4
+    data[:, 11] = np.nan
+    data[2, 17] = np.nan
+    starts = rng.integers(0, 6, B)
+    ends = rng.integers(18, T + 1, B)
+    for kw in ({"start": 1, "end": T - 2},
+               {"starts": torch.as_tensor(starts), "ends": torch.as_tensor(ends)}):
+        ref_v, ref_g = _raw_value_and_grad(spec, torch.as_tensor(p), torch.as_tensor(data),
+                                           torch.float64, device="cpu", **kw)
+        fin = torch.isfinite(ref_v)
+        assert not fin[3] and int(fin.sum()) == B - 1
+        card_kw = {k: (v.to(card) if torch.is_tensor(v) else v) for k, v in kw.items()}
+        p_card, d_card = torch.as_tensor(p, device=card), torch.as_tensor(data, device=card)
+        launches = (fused_kf_grad.launch_forward.launches,
+                    fused_kf_grad.launch_backward.launches)
+        v64, g64 = _raw_value_and_grad(spec, p_card, d_card, torch.float64, **card_kw)
+        v32, g32 = _raw_value_and_grad(spec, p_card, d_card, torch.float32, **card_kw)
+        torch.cuda.synchronize()
+        assert (fused_kf_grad.launch_forward.launches,
+                fused_kf_grad.launch_backward.launches) == (launches[0] + 2, launches[1] + 2)
+        v64, g64, v32, g32 = (x.cpu().double() for x in (v64, g64, v32, g32))
+        assert torch.equal(torch.isfinite(v64), fin) and torch.equal(torch.isfinite(v32), fin)
+        np.testing.assert_allclose(v64[fin].numpy(), ref_v[fin].numpy(), rtol=1e-9)
+        scale = ref_g[fin].abs().amax(1, keepdim=True)
+        assert ((g64[fin] - ref_g[fin]).abs() <= 1e-6 * (ref_g[fin].abs() + scale)).all()
+        np.testing.assert_allclose(v32[fin].numpy(), ref_v[fin].numpy(), rtol=5e-4, atol=1e-2)
+        na, nb = g32[fin].norm(dim=1), ref_g[fin].norm(dim=1)
+        assert ((g32[fin] * ref_g[fin]).sum(1) / (na * nb)).min() > 0.999
+        assert ((na / nb - 1).abs() < 0.05).all()
+
+
+@pytest.mark.cuda
+def test_estimate_on_the_card_matches_the_cpu(card):
+    """The fused MLE on the card (K1 probes, K2f/K2b gradients) against the
+    same call on the CPU (the plain versions), float32 both: ll within
+    rtol 1e-3, since Armijo decisions on float32 values rounded in another
+    order may send the two L-BFGS paths a step apart."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad
+
+    mats = tuple(np.array([3, 12, 36, 84, 180, 360]) / 12.0)
+    spec, _ = P.create_model("1C", mats)
+    rng = np.random.default_rng(0)
+    data = 0.5 * rng.standard_normal((6, 60))
+    base = np.zeros(spec.n_params)
+    base[spec.layout["gamma"][0]] = np.log(0.49)
+    base[spec.layout["obs_var"][0]] = 0.25
+    base[2:8] = [0.3, 0.01, 0.3, 0.01, 0.01, 0.3]
+    base[spec.layout["phi"][0]:] = (0.5 * np.eye(3)).reshape(-1)
+    starts = np.stack([base * (1 + 0.05 * rng.standard_normal(spec.n_params))
+                       for _ in range(3)], axis=1)
+    launches = fused_kf_grad.launch_backward.launches
+    _, ll_card, best_card, conv_card = P.estimate(spec, data, starts, max_iters=10)
+    assert fused_kf_grad.launch_backward.launches > launches
+    _, ll_cpu, best_cpu, conv_cpu = P.estimate(spec, data, starts, max_iters=10,
+                                               device="cpu")
+    assert conv_card.iterations > 0
+    np.testing.assert_allclose(ll_card, ll_cpu, rtol=1e-3)

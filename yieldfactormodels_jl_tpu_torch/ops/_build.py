@@ -24,11 +24,14 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels_build"
 
-#: kernel library name -> (source file under csrc/, C entry point, argtypes);
+#: kernel library name -> (source file under csrc/, {C entry point: argtypes});
 #: every pointer and the stream are c_void_p so ctypes never cuts them to 32 bits
 KERNELS = {
-    "fused_kf": ("fused_kf.cu", "yfm_fused_kf",
-                 [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14),
+    "fused_kf": ("fused_kf.cu", {
+        "yfm_fused_kf": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14}),
+    "fused_kf_grad": ("fused_kf_grad.cu", {
+        "yfm_kf_grad_fwd": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 14,
+        "yfm_kf_grad_bwd": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 22}),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -96,8 +99,8 @@ def load(name: str):
         if started is not None:
             _finish_build(name, started)
         lib = ctypes.CDLL(str(_lib_path(name)))
-        _, entry, argtypes = KERNELS[name]
-        getattr(lib, entry).argtypes = argtypes
-        getattr(lib, entry).restype = ctypes.c_int
+        for entry, argtypes in KERNELS[name][1].items():
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

@@ -58,9 +58,13 @@ def batched_loglik_reference(spec: ModelSpec, params_batch, data, start=0,
     """The plain PyTorch version of the kernel: the batched univariate
     recursion on the tensors' own device and dtype.  ``starts``/``ends``
     (B,) give each draw its own [start, end); the scalars are then ignored."""
+    batched_loglik_reference.calls += 1
     if starts is not None:
         start, end = starts, ends
     return univariate_kf.get_loss(spec, params_batch, data, start, end)
+
+
+batched_loglik_reference.calls = 0
 
 
 def _lay(x, B):
