@@ -33,16 +33,23 @@ Phases (any failure raises and the script exits non-zero):
    float32 gradient against the plain float64 adjoint by bench.py's
    direction-and-norm criterion (cosine > 0.999, norm ratio within 5% per
    finite draw), the float64 kernels against the plain float64 versions at
-   value rtol 1e-9 and gradient rtol 1e-6, and the plain float64 adjoint
-   against autograd of the plain recursion at B=64; then the same at "1C"
-   with interior NaN columns, an invalid draw and per-draw windows, B=2048.
+   value rtol 1e-9 and gradient rtol 1e-6, K2b's eight raw float64 outputs
+   against the plain adjoint's on the same inputs and checkpoints leaf by
+   leaf (rtol 1e-6, atol 1e-9 × the leaf's largest entry in the draw), and
+   the plain float64 adjoint against autograd of the plain recursion at
+   B=64; then the same at "1C" with interior NaN columns, an invalid draw
+   and per-draw windows, B=2048.
 7. the fused MLE — ``estimate`` on AFNS5, N=20, T=360, S=256 starts (bench's
-   draws, the make_panel panel), max_iters=50, with the launch counts set to
-   0 just before it: K1 ≥ 1, K2f = K2b = the number of value-and-gradient
-   calls, plain versions 0; the result finite, no worse than the best start
-   and through the trust-but-verify re-evaluation.  Then a small "1C" fit
-   on which the optimizer moves (N=6, T=60, S=3) on the card against the
-   same call on the CPU.
+   draws) on a panel simulated from the model at the first draw, as bench.py's
+   newton bench does, max_iters=50, with the launch counts set to 0 just
+   before it: K1 ≥ 1, K2f = K2b = the number of value-and-gradient calls,
+   plain versions 0; the result finite, through the trust-but-verify
+   re-evaluation, no start that moved without gaining and, if any moved,
+   above the best start.  For the starts that stopped at iteration 0 the
+   stop is checked in float64 through the plain versions: no Armijo point
+   among their 25 probes along −g.  Then a small "1C" fit on which the
+   optimizer moves (N=6, T=60, S=3) on the card against the same call on
+   the CPU.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON object {"kernels": [...]} with each kernel's launches on the
@@ -129,6 +136,29 @@ def make_param_batch(n_params, B, seed=1):
     return batch
 
 
+def simulate_panel(spec64, p, seed, T=T_MONTHS):
+    """(N, T) panel simulated in numpy from the model at constrained
+    parameters ``p`` (the port's unpacking and Z/d set-up, on the CPU):
+    β₀ from the unconditional moments, β_t = δ + Φβ_{t−1} + Cη_t,
+    y_t = Zβ_t + d + σε_t — the JAX package's ``simulate``, as bench.py's
+    newton bench uses it at the draws' base point."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    args = G.core_inputs(spec64, torch.as_tensor(p, dtype=torch.float64)[None],
+                         torch.zeros(spec64.N, T, dtype=torch.float64), 0, T)
+    Z, d, Phi, delta, Om, ovar, beta0, P0 = (a[0].detach().numpy() for a in args[:8])
+    Ms = Phi.shape[0]
+    rng = np.random.default_rng(seed)
+    C = np.linalg.cholesky(0.5 * (Om + Om.T) + 1e-12 * np.eye(Ms))
+    x = beta0 + np.linalg.cholesky(0.5 * (P0 + P0.T) + 1e-9 * np.eye(Ms)) \
+        @ rng.standard_normal(Ms)
+    data = np.zeros((spec64.N, T))
+    for t in range(T):
+        x = delta + Phi @ x + C @ rng.standard_normal(Ms)
+        data[:, t] = Z @ x + d + math.sqrt(ovar) * rng.standard_normal(spec64.N)
+    return data
+
+
 def kalman_draws(spec, B, rng, delta):
     """(B, n_params) stationary draws for a "1C" or TVλ spec."""
     p = np.zeros((B, spec.n_params))
@@ -211,21 +241,27 @@ def nbytes(*tensors):
 
 
 def grad_kernel_work(bufs, data, out, chk, grads):
-    """(bytes, flops) of K2f and of K2b for one launch on these buffers:
-    each input read once, each output written once.  K2f does K1's
-    operations; K2b recomputes the forward, runs the chain once more on each
-    observed step, then the adjoint: per observed update zP, f, v, K again
-    plus K̄, z̄P, v̄, f̄ and the ∂Z, ∂d, P̄ updates (10Ms²+21Ms+16), per step
-    the transition adjoint Φ̄, β̄_m, P̄_m (9Ms³+7Ms²+Ms)."""
+    """(bytes, flops) of K2f and of K2b's function for one launch on these
+    buffers, and the operations K2b itself runs: each input read once, each
+    output written once.  K2f does K1's operations.  The least work K2b's
+    function needs is one forward recompute (K1's operations), the adjoint
+    of each observed rank-1 update beyond its forward values — K̄, z̄P, v̄, f̄,
+    the ∂Z row, ∂d, ∂σ², b̄, P̄: 8Ms²+14Ms+13 — the de-symmetrization on each
+    observed step (2Ms²) and the transition adjoint Φ̄, β̄_m, P̄_m, δ̄, Ω̄ on
+    every step (8Ms³+7Ms²+Ms).  The kernel also runs the chain a second time
+    on each observed step to record the pre-update states, and recomputes
+    zP, f, v, K in the adjoint loop (2Ms²+5Ms+2 an update): that is its
+    overhead over the bound, counted apart."""
     Ms, B = bufs[3].shape
     T, N = bufs[8].shape
     obs = observed_steps(B, T, bufs[9], bufs[10], data)
     fwd = loglik_flops(Ms, B, N, T, obs)
-    bwd = (2 * fwd + obs * N * (10 * Ms * Ms + 21 * Ms + 16)
-           + B * T * (9 * Ms ** 3 + 7 * Ms * Ms + Ms))
+    bwd = (fwd + obs * N * (8 * Ms * Ms + 14 * Ms + 13) + obs * 2 * Ms * Ms
+           + B * T * (8 * Ms ** 3 + 7 * Ms * Ms + Ms))
+    bwd_run = bwd + obs * N * ((4 * Ms * Ms + 7 * Ms + 8) + (2 * Ms * Ms + 5 * Ms + 2))
     fwd_bytes = nbytes(*bufs, out, chk)
     bwd_bytes = nbytes(*bufs[:6], *bufs[8:], chk, out, *grads)
-    return (fwd_bytes, fwd), (bwd_bytes, bwd)
+    return (fwd_bytes, fwd), (bwd_bytes, bwd), bwd_run
 
 
 def bound(bytes_, flops):
@@ -302,6 +338,30 @@ def grads_close(got, ref, rtol, what):
     print(f"  {what}: ok, max error / draw scale {(err / scale).max():.3e} "
           f"(rtol={rtol})")
     return float(err.max())
+
+
+K2B_LEAVES = ("∂Z", "∂d", "∂Φ", "∂δ", "∂Ω", "∂σ²", "∂β₀", "∂P₀")
+
+
+def leaves_close(got, ref, rtol, atol_rel, what):
+    """K2b's eight raw outputs (draw-minor, as launch_backward returns them)
+    against the plain adjoint's, leaf by leaf and element by element:
+    |got − ref| ≤ rtol·|ref| + atol_rel·(that leaf's largest entry in the
+    draw).  Returns the largest error over that leaf scale."""
+    worst = 0.0
+    for name, g, r in zip(K2B_LEAVES, got, ref):
+        r = r.double().cpu().reshape(r.shape[0], -1)
+        g = g.double().cpu().T.reshape(r.shape)
+        scale = r.abs().amax(1, keepdim=True)
+        err = (g - r).abs()
+        rel = err / scale.clamp(min=1e-300)
+        bad = err > rtol * r.abs() + atol_rel * scale
+        check(not bool(bad.any()), f"{what} {name}: {int(bad.sum())} entries outside "
+              f"rtol={rtol}, atol={atol_rel}×leaf scale; max error/scale {rel.max():.3e}")
+        worst = max(worst, float(rel.max()))
+    print(f"  {what}: ok, all 8 leaves, max error / leaf scale {worst:.3e} "
+          f"(rtol={rtol}, atol={atol_rel}×leaf scale)")
+    return worst
 
 
 def chain_ms(Ms, N, T, clock_mhz):
@@ -510,19 +570,20 @@ def main(json_path=None) -> int:
             *plain[:6], *plain[8:], chk_plain, g), reps=1, warmup=0)
         X = yfm.untransform_params(spec, p32)
         vag_ms = cuda_ms(lambda: vag32(X), reps=5, warmup=2)
-        (fb, ff), (bb, bf) = grad_kernel_work(bufs, panel32, out, chk, grads)
+        (fb, ff), (bb, bf), bf_run = grad_kernel_work(bufs, panel32, out, chk, grads)
         f_bound, f_by = bound(fb, ff)
         b_bound, b_by = bound(bb, bf)
         grad_shapes[str(B)] = {
             "K2f": {"ms": fwd_ms, "plain_ms": fwd_plain_ms, "bytes": fb, "flops": ff,
                     "bound_ms": f_bound, "bound_by": f_by},
             "K2b": {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bytes": bb, "flops": bf,
-                    "bound_ms": b_bound, "bound_by": b_by},
+                    "bound_ms": b_bound, "bound_by": b_by, "kernel_flops": bf_run},
             "value_and_grad_ms": vag_ms, "grad_evals_per_s": B / (vag_ms * 1e-3)}
         print(f"  K2f B={B}: kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.1f} ms, "
               f"bound {f_bound:.4f} ms ({f_by})")
         print(f"  K2b B={B}: kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.1f} ms, "
-              f"bound {b_bound:.4f} ms ({b_by}; {bf / B:.0f} flop/draw)")
+              f"bound {b_bound:.4f} ms ({b_by}; {bf / B:.0f} flop/draw needed, "
+              f"{bf_run / B:.0f} run by the kernel)")
         print(f"  value-and-gradient through the fused objective B={B}: "
               f"{vag_ms:.4f} ms ({B / (vag_ms * 1e-3):.0f} grad evals/s)")
     report["shapes"] = shapes
@@ -530,7 +591,7 @@ def main(json_path=None) -> int:
 
     # ---- 6. gradient pair at full width ----------------------------------------
     print("[6] gradient pair: K2f + K2b against the plain versions")
-    grad_errs = {"K2f": [], "K2b": []}
+    grad_errs = {"K2f": [], "K2b": [], "K2b_leaves": []}
     wins = torch.as_tensor(rng.integers(0, 100, 2048), device=dev), \
         torch.as_tensor(rng.integers(200, T_MONTHS + 1, 2048), device=dev)
     dns32, _ = yfm.create_model("1C", MATURITIES)
@@ -573,6 +634,22 @@ def main(json_path=None) -> int:
         v64, g64 = raw_value_and_grad(yfm, s64, X64, data64, G._KalmanCore.apply, win)
         close(v64[fin], v_ref[fin], 1e-9, 0.0, f"{what}: f64 kernels value vs plain f64")
         grads_close(g64[fin], g_ref[fin], 1e-6, f"{what}: f64 kernels gradient vs plain f64")
+        # K2b's raw outputs, leaf by leaf, against the plain adjoint on the
+        # same float64 inputs, checkpoints (K2f's) and gated cotangent
+        wkw = {} if win is None else {"starts": win[0], "ends": win[1]}
+        args64 = [a.detach() if torch.is_tensor(a) else a for a in G.core_inputs(
+            s64, yfm.transform_params(s64, X64), data64, 0, T_MONTHS, **wkw)]
+        bufs64 = G.lay_out(*args64)
+        ll64, chk64 = G.launch_forward(bufs64)
+        cot = torch.rand(ll64.shape, generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev, dtype=f64) + 0.5
+        cot = torch.where(torch.isfinite(ll64), cot, torch.zeros_like(cot))
+        B6, Ms6 = args64[3].shape
+        chk_ref = chk64.T.reshape(B6, -1, Ms6 + Ms6 * Ms6)
+        grad_errs["K2b_leaves"].append(leaves_close(
+            G.launch_backward(bufs64, chk64, cot),
+            G.adjoint_reference(*args64[:6], *args64[8:], chk_ref, cot), 1e-6, 1e-9,
+            f"{what}: f64 K2b leaves vs plain f64 adjoint"))
         if win is not None:
             bad = (~fin).nonzero().flatten().tolist()
             check(bad == [5], f"{what}: invalid draws {bad}, expected [5]")
@@ -589,11 +666,17 @@ def main(json_path=None) -> int:
     # ---- 7. the fused MLE ----------------------------------------------------------
     print("[7] estimate: AFNS5, N=20, T=360, S=256, max_iters=50")
     S = 256
+    # the panel simulated from the model at the first of phase 2's draws, as
+    # bench.py's newton bench simulates its panel at its draws' base point
+    sim = simulate_panel(spec64, draws[1024][0].cpu().numpy(), seed=9)
+    sim32 = torch.as_tensor(sim, device=dev, dtype=f32)
     starts = make_param_batch(spec.n_params, S, seed=11)
     # the starts as estimate makes them: untransformed on the host in float64
-    raw0 = optimize._sanitize(yfm.untransform_params(spec, torch.as_tensor(starts)))
-    raw0 = torch.as_tensor(raw0, device=dev, dtype=f32)
-    best_start = float((-optimize.fused_objectives(spec, panel32, 0, T_MONTHS)[0](raw0)).max())
+    raw0_64 = torch.as_tensor(optimize._sanitize(
+        yfm.untransform_params(spec, torch.as_tensor(starts))), device=dev)
+    raw0 = raw0_64.to(f32)
+    f_start = optimize.fused_objectives(spec, sim32, 0, T_MONTHS)[0](raw0)
+    best_start = float((-f_start).max())
     grad_calls = [0]
     make_objectives = optimize.fused_objectives
 
@@ -612,7 +695,7 @@ def main(json_path=None) -> int:
         G.forward_reference.calls = G.adjoint_reference.calls = 0
         fused_kf.batched_loglik_reference.calls = 0
         t0 = time.perf_counter()
-        _, ll_fit, best_p, conv = yfm.estimate(spec, panel, starts.T, max_iters=50)
+        _, ll_fit, best_p, conv = yfm.estimate(spec, sim, starts.T, max_iters=50)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = {"K1": fused_kf.batched_loglik.launches,
@@ -629,24 +712,57 @@ def main(json_path=None) -> int:
           f"K2f/K2b launches differ from the value-and-gradient calls: {counts}")
     check(counts["plain"] == (0, 0, 0), f"plain versions ran on the card: {counts}")
     check(math.isfinite(ll_fit), f"estimate: non-finite ll {ll_fit}")
-    # K1 (the starts' values here) and K2f (the optimizer's) are separate
-    # kernels of one float32 recursion: allow their rounding, rtol 1e-6
+    iters = np.array(fit_report["iters"])
+    moved = int((iters > 0).sum())
+    lls_fit = torch.as_tensor(fit_report["lls"], dtype=f64)
+    # K1 (the starts' values here) and K2f (the optimizer's) run one float32
+    # recursion (kf_common.cuh) behind separate set-ups: allow their
+    # rounding, rtol 1e-6.  A start that did not move keeps its value; one
+    # that moved passed Armijo tests and must have gained.
+    f_start64 = -f_start.double().cpu()
+    still = iters == 0
+    check(bool(((lls_fit - f_start64).abs()[still]
+                <= 1e-6 * f_start64.abs()[still]).all()),
+          "estimate: a start that did not move changed its value")
+    check(bool((lls_fit[~still] > f_start64[~still]).all()),
+          "estimate: a start that moved did not gain")
+    check(moved == 0 or ll_fit > best_start,
+          f"estimate: ll {ll_fit} not above the best start's {best_start}")
     check(ll_fit >= best_start - 1e-6 * abs(best_start),
           f"estimate: ll {ll_fit} below the best start's {best_start}")
-    iters = fit_report["iters"]
-    moved = sum(i > 0 for i in iters)
+    if moved < S:
+        # The reference's first step is −g from α = 1 with at most 25
+        # backtracks by 0.8: show that a start that stopped there had no
+        # Armijo point, in float64 through the plain versions — the plain
+        # adjoint's gradient at the start and the plain loglik at all 25
+        # probes of every such start, in one batch.
+        X = raw0_64[torch.as_tensor(still, device=dev)]
+        f0, g0 = raw_value_and_grad(yfm, spec64, X, torch.as_tensor(sim, device=dev),
+                                    PlainCore.apply)
+        alphas = 0.8 ** torch.arange(25, device=dev, dtype=f64)
+        probes = (X[None] - alphas[:, None, None] * g0[None]).reshape(-1, X.shape[1])
+        ll_p = fused_kf.batched_loglik_reference(
+            spec64, yfm.transform_params(spec64, probes), torch.as_tensor(sim, device=dev))
+        f_p = torch.where(torch.isfinite(ll_p), -ll_p, torch.full_like(ll_p, 1e12))
+        armijo = f_p.reshape(25, -1) <= f0[None] - 1e-4 * alphas[:, None] * (g0 * g0).sum(1)[None]
+        check(not bool(armijo.any()), f"estimate: {int(armijo.any(0).sum())} starts that "
+              "stopped have an Armijo point in float64")
+        gnorm = g0.norm(dim=1)
+        print(f"  {S - moved} starts stopped at iteration 0; float64 check: no Armijo "
+              f"point among their 25 probes along −g (‖g‖ {float(gnorm.min()):.3e} "
+              f"… {float(gnorm.max()):.3e})")
     # the share of the wall that the trust-but-verify re-evaluation takes:
     # the same plain-engine call on the winner, timed again
     t0 = time.perf_counter()
-    yfm.get_loss(spec, best_p, panel)
+    yfm.get_loss(spec, best_p, sim)
     torch.cuda.synchronize()
     verify_s = time.perf_counter() - t0
     print(f"  ll {ll_fit:.4f} (best start {best_start:.4f}), {conv}, "
-          f"iterations max {max(iters)}, starts that moved {moved}/{S}, "
+          f"iterations max {iters.max()}, starts that moved {moved}/{S}, "
           f"wall {fit_s:.2f} s (the plain re-evaluation alone {verify_s:.2f} s); "
           f"trust-but-verify passed")
     report["estimate"] = {"S": S, "ll": ll_fit, "best_start_ll": best_start,
-                          "iterations_max": max(iters), "starts_moved": moved,
+                          "iterations_max": int(iters.max()), "starts_moved": moved,
                           "converged": bool(conv), "wall_s": fit_s,
                           "verify_s": verify_s, "counts": counts}
 
@@ -702,6 +818,7 @@ def main(json_path=None) -> int:
     kernels[-1]["gradient_criterion"] = {
         key: max(e[key] for e in grad_errs["K2b"])
         for key in ("max_one_minus_cos", "max_norm_ratio_err")}
+    kernels[-1]["f64_leaf_error_over_scale"] = max(grad_errs["K2b_leaves"])
     report["kernels"] = kernels
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)

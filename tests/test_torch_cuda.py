@@ -126,6 +126,41 @@ def test_fused_kf_grad_matches_plain_versions(card, code):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("code", ["1C", "AFNS3", "AFNS5"])
+def test_fused_kf_grad_leaves_match_the_plain_adjoint(card, code):
+    """K2b's eight raw float64 outputs (∂Z, ∂d, ∂Φ, ∂δ, ∂Ω, ∂σ², ∂β₀, ∂P₀)
+    against adjoint_reference on the same inputs, K2f's checkpoints and a
+    random cotangent, element by element: rtol 1e-6 with an atol of 1e-9
+    times the leaf's largest entry in the draw, so that no leaf is judged
+    by the scale of another (the same algebra in float64, summed in
+    another order)."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    rng = np.random.default_rng(2)
+    spec, _ = P.create_model(code, MATS, float_type="float64")
+    B, T = 96, 29
+    p = torch.as_tensor(_draws(spec, B, rng), device=card)
+    p[3] = float("nan")                             # gated: zero rows
+    data = torch.as_tensor(0.5 * rng.standard_normal((len(MATS), T)) + 4, device=card)
+    data[:, 11] = float("nan")
+    win = {"starts": torch.as_tensor(rng.integers(0, 6, B), device=card),
+           "ends": torch.as_tensor(rng.integers(18, T + 1, B), device=card)}
+    args = G.core_inputs(spec, p, data, 0, T, **win)
+    ll, chk = G.launch_forward(G.lay_out(*args))
+    g = torch.as_tensor(rng.uniform(0.5, 1.5, B), device=card)
+    g = torch.where(torch.isfinite(ll), g, torch.zeros_like(g))
+    got = G.launch_backward(G.lay_out(*args), chk, g)
+    Ms = spec.state_dim
+    ref = G.adjoint_reference(*args[:6], *args[8:], chk.T.reshape(B, -1, Ms + Ms * Ms), g)
+    for k, r in zip(got, ref):
+        r = r.reshape(B, -1)
+        k = k.T.reshape(r.shape)
+        scale = r.abs().amax(1, keepdim=True)
+        assert ((k - r).abs() <= 1e-6 * r.abs() + 1e-9 * scale).all()
+        assert (k[3] == 0).all()
+
+
+@pytest.mark.cuda
 def test_estimate_on_the_card_matches_the_cpu(card):
     """The fused MLE on the card (K1 probes, K2f/K2b gradients) against the
     same call on the CPU (the plain versions), float32 both: ll within

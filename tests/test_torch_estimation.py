@@ -161,12 +161,63 @@ def test_estimate_matches_jax_fused_estimate(yields_panel):
     np.testing.assert_allclose(rep["lls"], ref_rep["lls"], rtol=1e-4)
     assert init.shape == best.shape == (ts.n_params,)
     np.testing.assert_allclose(init, starts[:, rep["best"]], rtol=1e-5)
+    # both packages' losses at the port's winner; the JAX side through the
+    # loss its estimate compiled for its own re-evaluation (no new compile)
+    from yieldfactormodels_jl_tpu.models.params import transform_params as jax_transform
+
     raw = P.untransform_params(ts, torch.tensor(best))
-    np.testing.assert_allclose(
-        float(topt.compute_loss(ts, torch.tensor(data), raw)),
-        float(jax.jit(lambda r: jopt.compute_loss(js, jnp.asarray(data), r))(
-            jnp.asarray(raw.numpy()))),
-        rtol=1e-5)
+    jax_loss = -float(jopt._jitted_loss(js, data.shape[1])(
+        jax_transform(js, jnp.asarray(raw.numpy())), jnp.asarray(data),
+        jnp.asarray(0), jnp.asarray(data.shape[1])))
+    np.testing.assert_allclose(float(topt.compute_loss(ts, torch.tensor(data), raw)),
+                               jax_loss, rtol=1e-5)
+
+
+def _chip_smoke():
+    """chip_smoke.py (repository root) as a module: its panel and draws."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.slow
+def test_full_width_starts_stop_at_iteration_zero_in_both_packages():
+    """chip_smoke.py phase 7's panel and starts — AFNS5, N=20, T=360, the
+    panel simulated from the model at the first of the bench's draws — on
+    8 of its 256 starts: the JAX package's batched L-BFGS (the optimizer of
+    its estimate(objective="fused")) on its own float64 univariate
+    objective, and the port's estimate on the CPU, stop every start at
+    iteration 0 with the same values — within rtol 5e-4, since the port's
+    fused objective works in float32, as the JAX package's does, and that
+    is tests/test_pallas_kf.py's float32 tolerance.  Their first step is −g from
+    α = 1 with 25 backtracks by 0.8, and ‖g‖ is 1e6–1e8 at these starts.
+    JAX estimate(objective="fused") itself runs its Pallas kernels in
+    interpret mode on the CPU, whose compile at this width runs past
+    17 GB, so its optimizer is driven here on the plain objective."""
+    smoke = _chip_smoke()
+    ts, _ = P.create_model("AFNS5", smoke.MATURITIES, float_type="float64")
+    js, _ = J.create_model("AFNS5", tuple(smoke.MATURITIES), float_type="float64")
+    T = smoke.T_MONTHS
+    sim = smoke.simulate_panel(ts, smoke.make_param_batch(ts.n_params, 1024)[0], seed=9)
+    starts = smoke.make_param_batch(ts.n_params, 256, seed=11)[:8]
+    raw = np.nan_to_num(P.untransform_params(ts, torch.tensor(starts)).numpy())
+    jdata = jnp.asarray(sim)
+    jax_vag = jopt.vmapped_value_and_grad(js, jdata, 0, T)
+    jax_value = jax.vmap(lambda r: jopt._finite_objective(js, jdata, r, 0, T))
+    ref = jax.jit(lambda x: jax_lbfgs(
+        jax_vag, x, 50, g_tol=1e-6, f_abstol=1e-6, invalid_above=topt.PENALTY_THRESH,
+        value_fn=jax_value))(jnp.asarray(raw))
+    assert (np.asarray(ref.iters) == 0).all()
+    _, ll, _, conv = P.estimate(ts, sim, starts.T, max_iters=50, device=CPU)
+    rep = P.last_multistart_report()
+    assert rep["iters"] == [0] * 8 and conv.iterations == 0
+    np.testing.assert_allclose(rep["lls"], -np.asarray(ref.f), rtol=5e-4)
 
 
 def _tiny(yields_panel):

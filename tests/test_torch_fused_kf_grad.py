@@ -72,23 +72,38 @@ def _panel(rng, T, nan_tail=0, nan_interior=False):
 
 @functools.lru_cache(maxsize=None)
 def _jax_rows_vjp(js):
-    """Jitted (value, vjp) of the JAX univariate loss of every row, each row
-    with its own window: one compile per spec and shape, shared by the tests."""
+    """Jitted (value, cotangent-weighted gradient) of the JAX univariate loss
+    of every row, each row with its own window: one compile per spec and
+    shape, shared by the tests."""
     def rows(pb, data, starts, ends):
         return jax.vmap(lambda q, s, e: univariate_kf.get_loss(js, q, data, s, e))(
             pb, starts, ends)
 
-    return jax.jit(lambda pb, data, s, e: jax.vjp(lambda q: rows(q, data, s, e), pb))
+    def value_and_vjp(pb, data, s, e, cot):
+        vals, vjp = jax.vjp(lambda q: rows(q, data, s, e), pb)
+        return vals, vjp(cot)[0]
+
+    return jax.jit(value_and_vjp)
 
 
-def _jax_value_and_grad(js, p, data, start, end):
+def _jax_value_and_grad(js, p, data, start, end, shape=(3, 18)):
     """The JAX univariate loss of every row and its gradient; ``start``/
-    ``end`` are ints (one window) or per-row lists."""
-    B = p.shape[0]
-    starts = jnp.broadcast_to(jnp.asarray(start), (B,))
-    ends = jnp.broadcast_to(jnp.asarray(end), (B,))
-    vals, vjp = _jax_rows_vjp(js)(jnp.asarray(p), jnp.asarray(data), starts, ends)
-    return np.asarray(vals), np.asarray(vjp(jnp.ones_like(vals))[0])
+    ``end`` are ints (one window) or per-row lists.  Rows and columns are
+    padded to ``shape`` so that every call for a spec shares one compile:
+    extra rows repeat the last draw and are dropped, extra columns are NaN
+    and lie after every window's end, where they are predict-only steps that
+    touch neither the loss nor its gradient."""
+    B, T = p.shape[0], data.shape[1]
+    Bp, Tp = max(B, shape[0]), max(T, shape[1])
+    starts = np.broadcast_to(np.asarray(start, np.int32), (B,))
+    ends = np.broadcast_to(np.asarray(end, np.int32), (B,))
+    assert ends.max() <= T
+    rows = np.concatenate([np.arange(B), np.full(Bp - B, B - 1)])
+    data = np.concatenate([data, np.full((data.shape[0], Tp - T), np.nan)], axis=1)
+    cot = jnp.asarray((np.arange(Bp) < B).astype(np.float64))
+    vals, grad = _jax_rows_vjp(js)(jnp.asarray(p[rows]), jnp.asarray(data),
+                                   jnp.asarray(starts[rows]), jnp.asarray(ends[rows]), cot)
+    return np.asarray(vals)[:B], np.asarray(grad)[:B]
 
 
 def _port_value_and_grad(ts, p, data, **kw):

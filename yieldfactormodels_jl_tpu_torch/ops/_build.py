@@ -2,8 +2,8 @@
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, and loaded with ``ctypes``.  The library's
-file name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded from the build directory
+file name carries a hash of the source, the shared headers and the flags, so
+an edited source or header is rebuilt and an unchanged one is loaded from the build directory
 (``_kernels_build/`` beside this package's modules; ignored by git).  A build
 that fails raises with the compiler's output: there is no fallback.
 
@@ -52,8 +52,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / KERNELS[name][0]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of its source, the shared headers
+    it may include (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -80,22 +80,25 @@ def _chain(Z, d, ovar, y, fin, b, P, keep=None):
     column with NaNs replaced, ``fin`` its per-cell finiteness (Python
     bools).  Returns (b_u, P_u symmetrized, ll_step, ok); when ``keep`` is a
     list, each update's pre-state (b, P) is appended to it."""
-    ll = torch.zeros_like(ovar)
-    ok = torch.ones_like(ovar, dtype=torch.bool)
+    fs, vs = [], []
     for i in range(Z.shape[1]):
         if keep is not None:
             keep.append((b, P))
         z = Z[:, i]
         zP = (z[:, None, :] @ P)[:, 0]
         f = (zP * z).sum(-1) + ovar
-        ok = ok & (f > 0) & torch.isfinite(f)
         fsafe = torch.where(f > 0, f, torch.ones_like(f))
-        pred = (z * b).sum(-1) + d[:, i]
-        v = y[i] - pred if fin[i] else torch.zeros_like(pred)
+        v = y[i] - d[:, i] - (z * b).sum(-1) if fin[i] else torch.zeros_like(f)
         K = zP / fsafe[:, None]
         b = b + K * v[:, None]
         P = P - K[:, :, None] * zP[:, None, :]
-        ll = ll - 0.5 * (torch.log(fsafe) + v * v / fsafe + _LOG_2PI)
+        fs.append(f)
+        vs.append(v)
+    # the step's terms at once: (N, B)
+    f, v = torch.stack(fs), torch.stack(vs)
+    ok = ((f > 0) & torch.isfinite(f)).all(0)
+    fsafe = torch.where(f > 0, f, torch.ones_like(f))
+    ll = -0.5 * (torch.log(fsafe) + v * v / fsafe + _LOG_2PI).sum(0)
     return b, 0.5 * (P + P.transpose(-1, -2)), ll, ok
 
 
