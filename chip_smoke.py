@@ -25,31 +25,46 @@ Phases (any failure raises and the script exits non-zero):
 4. forecast — predict from the best draw with a 12-column NaN tail on the
    card against the same call on the CPU, both float64, at rtol 1e-9.
 5. timing — CUDA events around repeated launches after a warm-up, at
-   B=1024 and B=16384, for K1, K2f and K2b, and value-and-gradient evals/s
-   through the fused objective; the plain versions once, for information.
-6. gradient pair at full width — AFNS5, B=1024: raw draws through the fused
-   objective's value-and-gradient (K2f + K2b, launch counts 1 and 1, plain
-   versions 0), the float32 value against K1 at rtol 5e-4, atol 1e-2, the
-   float32 gradient against the plain float64 adjoint by bench.py's
-   direction-and-norm criterion (cosine > 0.999, norm ratio within 5% per
-   finite draw), the float64 kernels against the plain float64 versions at
-   value rtol 1e-9 and gradient rtol 1e-6, K2b's eight raw float64 outputs
-   against the plain adjoint's on the same inputs and checkpoints leaf by
-   leaf (rtol 1e-6, atol 1e-9 × the leaf's largest entry in the draw), and
-   the plain float64 adjoint against autograd of the plain recursion at
-   B=64; then the same at "1C" with interior NaN columns, an invalid draw
-   and per-draw windows, B=2048.
-7. the fused MLE — ``estimate`` on AFNS5, N=20, T=360, S=256 starts (bench's
-   draws) on a panel simulated from the model at the first draw, as bench.py's
-   newton bench does, max_iters=50, with the launch counts set to 0 just
-   before it: K1 ≥ 1, K2f = K2b = the number of value-and-gradient calls,
-   plain versions 0; the result finite, through the trust-but-verify
+   B=1024 and B=16384, for K1, K2f and K2b (AFNS5), and K1-TVλ, K3f and K3b
+   (TVλ on phase 3's DNS panel, both exact_jacobian settings), and
+   value-and-gradient evals/s through the fused objective; the plain
+   versions once, for information.
+6. gradient pairs at full width — through the fused objective's
+   value-and-gradient (launch counts 1 and 1, plain versions 0): AFNS5,
+   B=1024 (K2f + K2b) and TVλ, B=1024, under both exact_jacobian settings
+   (K3f + K3b).  The float32 value against K1 (K2f at rtol 5e-4, atol 1e-2;
+   K3f bit for bit), the float32 gradient against the plain float64 adjoint
+   by bench.py's direction-and-norm criterion (cosine > 0.999, norm ratio
+   within 5% per draw), the float64 kernels against the plain float64
+   versions at value rtol 1e-9 and gradient rtol 1e-6, the adjoint kernel's
+   raw float64 outputs (K2b's eight, K3b's six) against the plain adjoint's
+   on the same inputs and checkpoints leaf by leaf (rtol 1e-6, atol 1e-9 ×
+   the leaf's largest entry in the draw), and the plain float64 adjoint
+   against autograd of the plain recursion at B=64.  TVλ is held on the
+   draws whose value and gradient each type determines: phase 3's
+   criterion on the plain value, and on the plain gradient a quarter of
+   the gradient tolerance under nudges of ±1e-7 (float32) or ±1e-15
+   (float64) of the raw parameters, and for float32 agreement with the
+   plain float64 gradient to that quarter; the counts are printed.  There
+   the float32 gradient is also held against the plain float32 one.  Then "1C" and TVλ with interior NaN columns, an
+   invalid draw and per-draw windows, B=2048.
+7. the fused MLE — ``estimate`` at N=20, T=360, S=256 starts,
+   max_iters=50, with the launch counts set to 0 just before it: K1 ≥ 1,
+   the forward and adjoint kernels once per value-and-gradient call, plain
+   versions 0; the result finite, through the trust-but-verify
    re-evaluation, no start that moved without gaining and, if any moved,
    above the best start.  For the starts that stopped at iteration 0 the
    stop is checked in float64 through the plain versions: no Armijo point
-   among their 25 probes along −g.  Then a small "1C" fit on which the
-   optimizer moves (N=6, T=60, S=3) on the card against the same call on
-   the CPU.
+   among their 25 probes along −g.  AFNS5 (K2f/K2b) on a panel simulated
+   from the model at the first of bench's draws, as bench.py's newton bench
+   does; then TVλ (K3f/K3b) on a panel simulated from the TVλ EKF's
+   nonlinear measurement at the first of its starts.  Then small "1C" and
+   TVλ fits on which the optimizer moves (N=6, T=60, S=3), on the card
+   against the same calls on the CPU.
+8. rolling windows — ``estimate_windows`` for AFNS5 and TVλ on phase 7's
+   panels: W=8 expanding windows [0, 248+16w) × S=32 starts (256 draws),
+   launch counts as in 7; each window's best ll against ``estimate`` on
+   that window alone from the same starts, at rtol 1e-5; the wall time.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON object {"kernels": [...]} with each kernel's launches on the
@@ -59,6 +74,7 @@ main path, error, times and bound; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -75,6 +91,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # ---- the H100's published peaks (NVIDIA H100 SXM datasheet, 700 W) ---------
 PEAK_FP32_FLOPS = 67e12      # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # HBM3
+
+# ---- tolerances of a kernel against its plain version, by float type:
+# (rtol, atol, relative nudge of the determinacy test) --------------------
+TOLS = {torch.float32: (5e-4, 1e-2, 1e-7), torch.float64: (1e-9, 0.0, 1e-15)}
 
 # ---- this script's copy of bench.py's panel and draws ----------------------
 N_MATURITIES, T_MONTHS = 20, 360
@@ -141,12 +161,25 @@ def simulate_panel(spec64, p, seed, T=T_MONTHS):
     parameters ``p`` (the port's unpacking and Z/d set-up, on the CPU):
     β₀ from the unconditional moments, β_t = δ + Φβ_{t−1} + Cη_t,
     y_t = Zβ_t + d + σε_t — the JAX package's ``simulate``, as bench.py's
-    newton bench uses it at the draws' base point."""
+    newton bench uses it at the draws' base point.  For TVλ the measurement
+    is the EKF's nonlinear curve: y_t = β₀ + z₂β₁ + z₃β₂ + σε_t with the DNS
+    loadings at λ_t = 1e-2 + e^{β_t,3}."""
     from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
 
     args = G.core_inputs(spec64, torch.as_tensor(p, dtype=torch.float64)[None],
                          torch.zeros(spec64.N, T, dtype=torch.float64), 0, T)
-    Z, d, Phi, delta, Om, ovar, beta0, P0 = (a[0].detach().numpy() for a in args[:8])
+    tvl = spec64.family == "kalman_tvl"
+    state = args[:6] if tvl else args[2:8]
+    Phi, delta, Om, ovar, beta0, P0 = (a[0].detach().numpy() for a in state)
+    mats = np.asarray(spec64.maturities, dtype=np.float64)
+
+    def measure(x):
+        if not tvl:
+            return args[0][0].detach().numpy() @ x + args[1][0].detach().numpy()
+        tau = (1e-2 + math.exp(x[3])) * mats
+        z2 = (1 - np.exp(-tau)) / tau
+        return x[0] + z2 * x[1] + (z2 - np.exp(-tau)) * x[2]
+
     Ms = Phi.shape[0]
     rng = np.random.default_rng(seed)
     C = np.linalg.cholesky(0.5 * (Om + Om.T) + 1e-12 * np.eye(Ms))
@@ -155,8 +188,12 @@ def simulate_panel(spec64, p, seed, T=T_MONTHS):
     data = np.zeros((spec64.N, T))
     for t in range(T):
         x = delta + Phi @ x + C @ rng.standard_normal(Ms)
-        data[:, t] = Z @ x + d + math.sqrt(ovar) * rng.standard_normal(spec64.N)
+        data[:, t] = measure(x) + math.sqrt(ovar) * rng.standard_normal(spec64.N)
     return data
+
+
+#: TVλ transition intercept: a steady state (4, −1, 0.5, ln 0.49) under Φ ≈ 0.9
+TVL_DELTA = [0.4, -0.1, 0.05, 0.1 * math.log(0.49)]
 
 
 def kalman_draws(spec, B, rng, delta):
@@ -216,6 +253,62 @@ def observed_steps(B, T, masks, win, data):
     return int((((t >= lo) & (t < hi)) & finite_col).sum())
 
 
+def determined_draws(spec, p64, data64, dtype, rtol, atol, eps, **kw):
+    """The draws whose loglik the float type determines: the plain version
+    in ``dtype`` moves by less than a quarter of the tolerance when the
+    constrained parameters move by eps, −eps and 3·eps, relative.  On some
+    draws the TVλ EKF amplifies rounding far beyond the tolerances — under
+    the reference's Jacobian (exact_jacobian=False) in float64 too — so
+    each kernel instance is held against its plain version there only.
+    The nudged draws go through one batched call.  Returns (mask, the
+    plain value)."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf
+
+    pd, dd = p64.to(dtype), data64.to(dtype)
+    nudges = (0.0, eps, -eps, 3 * eps)
+    kw = {k: v.repeat(len(nudges)) for k, v in kw.items()}
+    ll = fused_kf.batched_loglik_reference(
+        spec, torch.cat([pd * (1 + n) for n in nudges]), dd, **kw).reshape(len(nudges), -1)
+    ref = ll[0]
+    det = torch.isfinite(ref) & ((ll[1:] - ref).abs() <= (atol + rtol * ref.abs()) / 4).all(0)
+    return det, ref
+
+
+def determined_gradients(yfm, spec, X64, data64, dtype, eps, win, ref=None,
+                         cos_min=0.999, norm_tol=0.05, rtol=1e-6):
+    """The draws whose MLE gradient the float type determines, by
+    :func:`determined_draws`' criterion applied to the plain versions'
+    gradient at raw parameters X: when X moves by ±eps, relative, it keeps
+    a cosine above 1 − (1 − cos_min)/4 and its norm within norm_tol/4
+    (float32; the criterion the kernel is held to is cos_min and norm_tol),
+    or moves by less than rtol/4 of the draw's largest component (float64).
+    With ``ref`` (the plain float64 gradient), a float32 gradient must also
+    agree with it to the same quarter criterion: float32 can be stable
+    under nudges and still biased.  The TVλ EKF's gradient amplifies
+    rounding more than its value does.  Returns (mask, the plain value and
+    gradient at X)."""
+    nudges = (0.0, eps, -eps)
+    B = X64.shape[0]
+    Xd = torch.cat([X64.to(dtype) * (1 + n) for n in nudges])
+    w = None if win is None else tuple(x.repeat(len(nudges)) for x in win)
+    v, g = raw_value_and_grad(yfm, spec, Xd, data64.to(dtype), plain_core(spec), w)
+    g = g.double().reshape(len(nudges), B, -1)
+    g0 = g[0]
+
+    def agree(ga, gb):
+        if dtype == torch.float64:
+            scale = gb.abs().amax(1, keepdim=True)
+            return ((ga - gb).abs() <= rtol / 4 * (gb.abs() + scale)).all(1)
+        na, nb = ga.norm(dim=1), gb.norm(dim=1).clamp(min=1e-300)
+        cos = (ga * gb).sum(1) / (na * nb).clamp(min=1e-300)
+        return (cos > 1 - (1 - cos_min) / 4) & ((na / nb - 1).abs() < norm_tol / 4)
+
+    det = agree(g[1], g0) & agree(g[2], g0)
+    if ref is not None:
+        det &= agree(g0, ref.double())
+    return det, v.reshape(len(nudges), B)[0], g0
+
+
 def loglik_flops(Ms, B, N, T, obs_steps, tvl=False):
     """Floating-point operations of one loglik pass: the scalar measurement
     updates on the observed draw-steps, the symmetrize + transition on every
@@ -240,27 +333,41 @@ def nbytes(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
 
-def grad_kernel_work(bufs, data, out, chk, grads):
-    """(bytes, flops) of K2f and of K2b's function for one launch on these
-    buffers, and the operations K2b itself runs: each input read once, each
-    output written once.  K2f does K1's operations.  The least work K2b's
-    function needs is one forward recompute (K1's operations), the adjoint
-    of each observed rank-1 update beyond its forward values — K̄, z̄P, v̄, f̄,
-    the ∂Z row, ∂d, ∂σ², b̄, P̄: 8Ms²+14Ms+13 — the de-symmetrization on each
-    observed step (2Ms²) and the transition adjoint Φ̄, β̄_m, P̄_m, δ̄, Ω̄ on
-    every step (8Ms³+7Ms²+Ms).  The kernel also runs the chain a second time
-    on each observed step to record the pre-update states, and recomputes
-    zP, f, v, K in the adjoint loop (2Ms²+5Ms+2 an update): that is its
-    overhead over the bound, counted apart."""
-    Ms, B = bufs[3].shape
-    T, N = bufs[8].shape
-    obs = observed_steps(B, T, bufs[9], bufs[10], data)
-    fwd = loglik_flops(Ms, B, N, T, obs)
-    bwd = (fwd + obs * N * (8 * Ms * Ms + 14 * Ms + 13) + obs * 2 * Ms * Ms
+#: operations of one TVλ row build (exp, two divides and the Jacobian
+#: column) and of its adjoint (TvlRows::adjoint), per observed update
+TVL_ROW_FLOPS, TVL_ROW_ADJOINT_FLOPS = 20, 40
+
+
+def grad_kernel_work(bufs, data, out, chk, grads, tvl=False):
+    """(bytes, flops) of the forward kernel (K2f/K3f) and of the adjoint's
+    function (K2b/K3b) for one launch on these buffers (``lay_out`` or
+    ``lay_out_tvl``), and the operations the adjoint kernel itself runs:
+    each input read once, each output written once.  The forward kernel
+    does K1's operations.  The least work the adjoint's function needs is
+    one forward recompute (K1's operations), the adjoint of each observed
+    rank-1 update beyond its forward values — K̄, z̄P, v̄, f̄, the z̄ row, ∂d,
+    ∂σ², b̄, P̄: 8Ms²+14Ms+13, and for TVλ the row adjoint — the
+    de-symmetrization on each observed step (2Ms²) and the transition
+    adjoint Φ̄, β̄_m, P̄_m, δ̄, Ω̄ on every step (8Ms³+7Ms²+Ms).  The kernel
+    also runs the chain a second time on each observed step to record the
+    pre-update states, and recomputes zP, f, v, K (and the TVλ rows) in the
+    adjoint loop (2Ms²+5Ms+2 an update): that is its overhead over the
+    bound, counted apart."""
+    first, panel = (1, 6) if tvl else (3, 8)
+    Ms, B = bufs[first].shape
+    T, N = bufs[panel].shape
+    obs = observed_steps(B, T, bufs[panel + 1], bufs[panel + 2], data)
+    fwd = loglik_flops(Ms, B, N, T, obs, tvl)
+    row_adj = TVL_ROW_ADJOINT_FLOPS if tvl else 0
+    row = TVL_ROW_FLOPS if tvl else 0
+    bwd = (fwd + obs * N * (8 * Ms * Ms + 14 * Ms + 13 + row_adj) + obs * 2 * Ms * Ms
            + B * T * (8 * Ms ** 3 + 7 * Ms * Ms + Ms))
-    bwd_run = bwd + obs * N * ((4 * Ms * Ms + 7 * Ms + 8) + (2 * Ms * Ms + 5 * Ms + 2))
+    bwd_run = bwd + obs * N * ((4 * Ms * Ms + 7 * Ms + 8 + row)
+                               + (2 * Ms * Ms + 5 * Ms + 2 + row))
     fwd_bytes = nbytes(*bufs, out, chk)
-    bwd_bytes = nbytes(*bufs[:6], *bufs[8:], chk, out, *grads)
+    skip = (4, 6) if tvl else (6, 8)  # β₀, P₀: the adjoint reads the checkpoints
+    bwd_in = bufs[:skip[0]] + bufs[skip[1]:]
+    bwd_bytes = nbytes(*bwd_in, chk, out, *grads)
     return (fwd_bytes, fwd), (bwd_bytes, bwd), bwd_run
 
 
@@ -293,6 +400,35 @@ class PlainCore(torch.autograd.Function):
         grads = G.adjoint_reference(Z, d, Phi, delta, Om, ovar, data, masks,
                                     ctx.win, chk, g)
         return (*grads, None, None, None)
+
+
+class PlainTvlCore(torch.autograd.Function):
+    """The plain versions of K3f and K3b as one autograd Function."""
+
+    @staticmethod
+    def forward(ctx, Phi, delta, Om, ovar, beta0, P0, data, masks, win, mats, exact):
+        from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+        ll, chk = G.forward_reference_tvl(Phi, delta, Om, ovar, beta0, P0, data,
+                                          masks, win, mats, exact)
+        ctx.win, ctx.exact = win, exact
+        ctx.save_for_backward(Phi, delta, Om, ovar, data, masks, mats, chk, ll)
+        return ll
+
+    @staticmethod
+    def backward(ctx, g):
+        from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+        Phi, delta, Om, ovar, data, masks, mats, chk, ll = ctx.saved_tensors
+        g = torch.where(torch.isfinite(ll), g, torch.zeros_like(g))
+        grads = G.adjoint_reference_tvl(Phi, delta, Om, ovar, data, masks, ctx.win,
+                                        mats, ctx.exact, chk, g)
+        return (*grads, None, None, None, None, None)
+
+
+def plain_core(spec):
+    """The plain versions' autograd Function for the spec's family."""
+    return (PlainTvlCore if spec.family == "kalman_tvl" else PlainCore).apply
 
 
 def raw_value_and_grad(yfm, spec, X, data, core, win=None):
@@ -341,17 +477,22 @@ def grads_close(got, ref, rtol, what):
 
 
 K2B_LEAVES = ("∂Z", "∂d", "∂Φ", "∂δ", "∂Ω", "∂σ²", "∂β₀", "∂P₀")
+K3B_LEAVES = K2B_LEAVES[2:]
 
 
-def leaves_close(got, ref, rtol, atol_rel, what):
-    """K2b's eight raw outputs (draw-minor, as launch_backward returns them)
-    against the plain adjoint's, leaf by leaf and element by element:
+def leaves_close(got, ref, rtol, atol_rel, what, rows=None):
+    """The adjoint kernel's raw outputs (draw-minor, as launch_backward[_tvl]
+    returns them: K2b's eight, K3b's six) against the plain adjoint's, leaf
+    by leaf and element by element, on the draws ``rows`` (all if None):
     |got − ref| ≤ rtol·|ref| + atol_rel·(that leaf's largest entry in the
     draw).  Returns the largest error over that leaf scale."""
     worst = 0.0
-    for name, g, r in zip(K2B_LEAVES, got, ref):
+    names = K2B_LEAVES if len(got) == len(K2B_LEAVES) else K3B_LEAVES
+    for name, g, r in zip(names, got, ref):
         r = r.double().cpu().reshape(r.shape[0], -1)
         g = g.double().cpu().T.reshape(r.shape)
+        if rows is not None:
+            r, g = r[rows.cpu()], g[rows.cpu()]
         scale = r.abs().amax(1, keepdim=True)
         err = (g - r).abs()
         rel = err / scale.clamp(min=1e-300)
@@ -359,7 +500,7 @@ def leaves_close(got, ref, rtol, atol_rel, what):
         check(not bool(bad.any()), f"{what} {name}: {int(bad.sum())} entries outside "
               f"rtol={rtol}, atol={atol_rel}×leaf scale; max error/scale {rel.max():.3e}")
         worst = max(worst, float(rel.max()))
-    print(f"  {what}: ok, all 8 leaves, max error / leaf scale {worst:.3e} "
+    print(f"  {what}: ok, all {len(got)} leaves, max error / leaf scale {worst:.3e} "
           f"(rtol={rtol}, atol={atol_rel}×leaf scale)")
     return worst
 
@@ -394,6 +535,222 @@ def nvidia_smi(query):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def counted_objectives(optimize):
+    """Count the value-and-gradient calls of every fused objective that
+    ``optimize`` builds inside the block; yields a one-element list."""
+    calls = [0]
+    make = optimize.fused_objectives
+
+    def counting(*a, **k):
+        value_fn, vag = make(*a, **k)
+
+        def counted(X):
+            calls[0] += 1
+            return vag(X)
+        return value_fn, counted
+
+    optimize.fused_objectives = counting
+    try:
+        yield calls
+    finally:
+        optimize.fused_objectives = make
+
+
+def launch_counters(spec):
+    """(forward kernel, adjoint kernel, plain forward, plain adjoint) of the
+    spec's family: K3f/K3b for TVλ, K2f/K2b otherwise."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    if spec.family == "kalman_tvl":
+        return (G.launch_forward_tvl, G.launch_backward_tvl, G.forward_reference_tvl,
+                G.adjoint_reference_tvl)
+    return G.launch_forward, G.launch_backward, G.forward_reference, G.adjoint_reference
+
+
+def zero_counts(spec):
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf
+
+    fwd, bwd, fwd_p, bwd_p = launch_counters(spec)
+    fused_kf.batched_loglik.launches = fwd.launches = bwd.launches = 0
+    fwd_p.calls = bwd_p.calls = fused_kf.batched_loglik_reference.calls = 0
+
+
+def read_counts(spec, vag_calls):
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf
+
+    fwd, bwd, fwd_p, bwd_p = launch_counters(spec)
+    return {"K1": fused_kf.batched_loglik.launches, "forward": fwd.launches,
+            "backward": bwd.launches, "value_and_grad_calls": vag_calls,
+            "plain": (fwd_p.calls, bwd_p.calls, fused_kf.batched_loglik_reference.calls)}
+
+
+def check_counts(counts, what):
+    check(counts["K1"] >= 1, f"{what}: the Armijo probes never launched K1")
+    check(counts["forward"] == counts["backward"] == counts["value_and_grad_calls"] >= 1,
+          f"{what}: forward/adjoint launches differ from the value-and-gradient calls: "
+          f"{counts}")
+    check(counts["plain"] == (0, 0, 0), f"{what}: plain versions ran on the card: {counts}")
+
+
+def full_width_fit(yfm, optimize, spec, spec64, sim, starts, dev):
+    """``estimate`` at N=20, T=360 from the (S, P) constrained ``starts`` on
+    the card, with the launch counts set to 0 just before it: K1 ≥ 1, the
+    forward and adjoint kernels once per value-and-gradient call, the plain
+    versions never.  The result passes the trust-but-verify re-evaluation,
+    no start that moved failed to gain, and a moved run beats the best
+    start.  Starts that stopped at iteration 0 are checked in float64
+    through the plain versions: no Armijo point among their 25 probes
+    along −g.  Returns the report."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf
+
+    f32, f64 = torch.float32, torch.float64
+    S = starts.shape[0]
+    sim32 = torch.as_tensor(sim, device=dev, dtype=f32)
+    # the starts as estimate makes them: untransformed on the host in float64
+    raw0_64 = torch.as_tensor(optimize._sanitize(
+        yfm.untransform_params(spec, torch.as_tensor(starts))), device=dev)
+    f_start = optimize.fused_objectives(spec, sim32, 0, T_MONTHS)[0](raw0_64.to(f32))
+    best_start = float((-f_start).max())
+    with counted_objectives(optimize) as vag_calls:
+        zero_counts(spec)
+        t0 = time.perf_counter()
+        _, ll_fit, best_p, conv = yfm.estimate(spec, sim, starts.T, max_iters=50)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts(spec, vag_calls[0])
+    fit_report = yfm.last_multistart_report()
+    print(f"  main path: {counts}")
+    check_counts(counts, "estimate")
+    check(math.isfinite(ll_fit), f"estimate: non-finite ll {ll_fit}")
+    iters = np.array(fit_report["iters"])
+    moved = int((iters > 0).sum())
+    lls_fit = torch.as_tensor(fit_report["lls"], dtype=f64)
+    # K1 (the starts' values here) and the forward kernel (the optimizer's)
+    # run one float32 recursion (kf_common.cuh) behind separate set-ups:
+    # allow their rounding, rtol 1e-6.  A start that did not move keeps its
+    # value; one that moved passed Armijo tests and must have gained.
+    f_start64 = -f_start.double().cpu()
+    still = iters == 0
+    check(bool(((lls_fit - f_start64).abs()[still]
+                <= 1e-6 * f_start64.abs()[still]).all()),
+          "estimate: a start that did not move changed its value")
+    check(bool((lls_fit[~still] > f_start64[~still]).all()),
+          "estimate: a start that moved did not gain")
+    check(moved == 0 or ll_fit > best_start,
+          f"estimate: ll {ll_fit} not above the best start's {best_start}")
+    check(ll_fit >= best_start - 1e-6 * abs(best_start),
+          f"estimate: ll {ll_fit} below the best start's {best_start}")
+    if moved < S:
+        # The reference's first step is −g from α = 1 with at most 25
+        # backtracks by 0.8: show that a start that stopped there had no
+        # Armijo point, in float64 through the plain versions — the plain
+        # adjoint's gradient at the start and the plain loglik at all 25
+        # probes of every such start, in one batch.
+        sim64 = torch.as_tensor(sim, device=dev)
+        X = raw0_64[torch.as_tensor(still, device=dev)]
+        f0, g0 = raw_value_and_grad(yfm, spec64, X, sim64, plain_core(spec64))
+        alphas = 0.8 ** torch.arange(25, device=dev, dtype=f64)
+        probes = (X[None] - alphas[:, None, None] * g0[None]).reshape(-1, X.shape[1])
+        ll_p = fused_kf.batched_loglik_reference(
+            spec64, yfm.transform_params(spec64, probes), sim64)
+        f_p = torch.where(torch.isfinite(ll_p), -ll_p, torch.full_like(ll_p, 1e12))
+        armijo = f_p.reshape(25, -1) <= f0[None] - 1e-4 * alphas[:, None] * (g0 * g0).sum(1)[None]
+        check(not bool(armijo.any()), f"estimate: {int(armijo.any(0).sum())} starts that "
+              "stopped have an Armijo point in float64")
+        gnorm = g0.norm(dim=1)
+        print(f"  {S - moved} starts stopped at iteration 0; float64 check: no Armijo "
+              f"point among their 25 probes along −g (‖g‖ {float(gnorm.min()):.3e} "
+              f"… {float(gnorm.max()):.3e})")
+    # the share of the wall that the trust-but-verify re-evaluation takes:
+    # the same plain-engine call on the winner, timed again
+    t0 = time.perf_counter()
+    yfm.get_loss(spec, best_p, sim)
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    print(f"  ll {ll_fit:.4f} (best start {best_start:.4f}), {conv}, "
+          f"iterations max {iters.max()}, mean {iters.mean():.2f}, starts that moved "
+          f"{moved}/{S}, wall {fit_s:.2f} s (the plain re-evaluation alone "
+          f"{verify_s:.2f} s); trust-but-verify passed")
+    return {"S": S, "ll": ll_fit, "best_start_ll": best_start,
+            "iterations_max": int(iters.max()), "iterations_mean": float(iters.mean()),
+            "starts_moved": moved, "converged": bool(conv), "wall_s": fit_s,
+            "verify_s": verify_s, "counts": counts}
+
+
+def small_fit(yfm, optimize, code, mats, obs_var):
+    """A fit on which the optimizer moves — N=6, T=60, S=3 on a unit-scale
+    panel (tests/test_torch_estimation.py's), from starts around a
+    stationary point with measurement variance ``obs_var`` — on the card
+    against the same call on the CPU, float32 both: ll within rtol 1e-3,
+    since Armijo decisions on float32 values rounded in another order may
+    send the two L-BFGS paths a step apart."""
+    spec, _ = yfm.create_model(code, mats)
+    rng = np.random.default_rng(0)
+    data = 0.5 * rng.standard_normal((len(mats), 60))
+    base = np.zeros(spec.n_params)
+    base[spec.layout["obs_var"][0]] = obs_var
+    a, _ = spec.layout["chol"]
+    for k, (r, c) in enumerate(zip(*spec.chol_indices)):
+        base[a + k] = 0.3 if r == c else 0.01
+    Ms = spec.state_dim
+    lo, hi = spec.layout["phi"]
+    base[lo:hi] = (0.5 * np.eye(Ms)).reshape(-1)
+    if "gamma" in spec.layout:
+        base[spec.layout["gamma"][0]] = math.log(0.49)
+    else:  # TVλ: the λ driver's steady state at ln 0.49
+        base[spec.layout["delta"][0] + 3] = 0.5 * math.log(0.49)
+    starts = np.stack([base * (1 + 0.05 * rng.standard_normal(spec.n_params))
+                       for _ in range(3)], axis=1)
+    raw = yfm.untransform_params(spec, torch.as_tensor(starts.T)).to(torch.float32)
+    best = float((-optimize.fused_objectives(spec, torch.as_tensor(data, dtype=torch.float32),
+                                             0, 60)[0](raw)).max())
+    _, ll_card, _, conv_card = yfm.estimate(spec, data, starts, max_iters=20)
+    _, ll_cpu, _, conv_cpu = yfm.estimate(spec, data, starts, max_iters=20, device="cpu")
+    print(f"  card ll {ll_card:.6f} ({conv_card}), CPU ll {ll_cpu:.6f} ({conv_cpu}), "
+          f"best start {best:.6f}")
+    check(conv_card.iterations > 0 and ll_card > best,
+          f"the small {code} fit did not move on the card")
+    check(abs(ll_card - ll_cpu) <= 1e-3 * abs(ll_cpu),
+          f"the small {code} fit on the card and on the CPU differ by more than rtol 1e-3")
+
+
+def windows_fit(yfm, optimize, label, spec, sim, starts, ends):
+    """``estimate_windows`` over expanding windows [0, end) × the (S, P)
+    constrained ``starts``, with launch counts (one forward and one adjoint
+    launch per value-and-gradient call); each window's best ll against an
+    ``estimate`` on that window alone from the same starts, on the card, at
+    rtol 1e-5.  Returns the report."""
+    W, S = len(ends), starts.shape[0]
+    raw = optimize._sanitize(yfm.untransform_params(spec, torch.as_tensor(starts)))
+    with counted_objectives(optimize) as vag_calls:
+        zero_counts(spec)
+        t0 = time.perf_counter()
+        xs, lls = yfm.estimate_windows(spec, sim, raw, [0] * W, ends, max_iters=50)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts(spec, vag_calls[0])
+    print(f"  {label}: {W}×{S} draws, launches {counts}, wall {wall_s:.2f} s")
+    check_counts(counts, f"{label} estimate_windows")
+    check(xs.shape == (W, S, spec.n_params) and lls.shape == (W, S),
+          f"{label}: shapes {xs.shape} {lls.shape}")
+    best = lls.max(1)
+    check(bool(np.isfinite(best).all()), f"{label}: a window has no finite ll")
+    alone = []
+    for w, end in enumerate(ends):
+        _, ll_w, _, _ = yfm.estimate(spec, sim, starts.T, start=0, end=end, max_iters=50)
+        alone.append(ll_w)
+    alone = np.array(alone)
+    err = np.abs(best - alone)
+    check(bool((err <= 1e-5 * np.abs(alone)).all()),
+          f"{label}: windows' best ll differ from estimate per window: {best} vs {alone}")
+    print(f"  {label}: each window's best ll equals estimate on that window alone "
+          f"(max rel err {float((err / np.abs(alone)).max()):.3e}); lls {np.round(best, 3)}")
+    return {"W": W, "S": S, "wall_s": wall_s, "counts": counts,
+            "best_ll": best.tolist(), "estimate_ll": alone.tolist(),
+            "max_rel_err": float((err / np.abs(alone)).max())}
 
 
 def main(json_path=None) -> int:
@@ -481,33 +838,24 @@ def main(json_path=None) -> int:
     p = kalman_draws(dns64, Bo, rng, [0.4, -0.1, 0.05])
     p[5] = np.nan                                      # invalid draw → −inf
     cases.append(("1C NaN columns + invalid row", dns64, p, gapped64, {}))
+    tvl32, _ = yfm.create_model("TVλ", MATURITIES)
     tvl64, _ = yfm.create_model("TVλ", MATURITIES, float_type="float64")
-    dns64_panel = torch.as_tensor(make_dns_panel(seed=2), device=dev, dtype=f64)
-    tvl_delta = [0.4, -0.1, 0.05, 0.1 * math.log(0.49)]
+    dns_panel = make_dns_panel(seed=2)
+    dns64_panel = torch.as_tensor(dns_panel, device=dev, dtype=f64)
     for exact in (False, True):
         s = dataclasses.replace(tvl64, exact_jacobian=exact)
         cases.append((f"TVλ exact_jacobian={exact}", s,
-                      kalman_draws(s, Bo, rng, tvl_delta), dns64_panel, {}))
+                      kalman_draws(s, Bo, rng, TVL_DELTA), dns64_panel, {}))
     win = {"starts": torch.as_tensor(rng.integers(0, 100, Bo), device=dev),
            "ends": torch.as_tensor(rng.integers(200, T_MONTHS + 1, Bo), device=dev)}
     cases.append(("AFNS5 per-draw windows", spec64,
                   make_param_batch(spec.n_params, Bo, seed=3), panel64, win))
-    # On some draws the TVλ EKF amplifies rounding far beyond the tolerances —
-    # under the reference's Jacobian (exact_jacobian=False) in float64 too:
-    # there the plain version itself moves by more than the tolerance when the
-    # parameters move by a few units in the last place.  Each kernel instance
-    # is held against the plain version in its own type on the draws where
-    # that type determines the answer, and those must be most draws.
+    # each kernel instance against the plain version in its own type, on
+    # the draws where that type determines the answer (most draws)
     for what, s, p, data64, kw in cases:
         pt = torch.as_tensor(p, device=dev, dtype=f64)
-        for dtype, rtol, atol, eps in ((f32, 5e-4, 1e-2, 1e-7), (f64, 1e-9, 0.0, 1e-15)):
-            pd, dd = pt.to(dtype), data64.to(dtype)
-            ref = fused_kf.batched_loglik_reference(s, pd, dd, **kw)
-            tol = atol + rtol * ref.abs()
-            determined = torch.isfinite(ref)
-            for nudge in (eps, -eps, 3 * eps):
-                moved = fused_kf.batched_loglik_reference(s, pd * (1 + nudge), dd, **kw)
-                determined &= (moved - ref).abs() <= tol / 4
+        for dtype, (rtol, atol, eps) in TOLS.items():
+            determined, ref = determined_draws(s, pt, data64, dtype, rtol, atol, eps, **kw)
             n_det = int(determined.sum())
             name = str(dtype).replace("torch.float", "f")
             print(f"  {what}: {name} determines {n_det} of {Bo} draws")
@@ -533,7 +881,7 @@ def main(json_path=None) -> int:
 
     # ---- 5. timing ---------------------------------------------------------------
     print("[5] timing (CUDA events)")
-    shapes, grad_shapes = {}, {}
+    shapes, grad_shapes, tvl_shapes = {}, {}, {}
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     panel32 = torch.as_tensor(panel, device=dev, dtype=f32)
     _, vag32 = optimize.fused_objectives(spec, panel32, 0, T_MONTHS)
@@ -589,9 +937,59 @@ def main(json_path=None) -> int:
     report["shapes"] = shapes
     report["grad_shapes"] = grad_shapes
 
-    # ---- 6. gradient pair at full width ----------------------------------------
+    # TVλ on phase 3's DNS panel: K1-TVλ beside K3f and K3b in the same
+    # call, both Jacobian settings; the plain versions once, under the
+    # spec's default (the reference's Jacobian)
+    dns_panel32 = torch.as_tensor(dns_panel, device=dev, dtype=f32)
+    for exact in (False, True):
+        s32 = dataclasses.replace(tvl32, exact_jacobian=exact)
+        _, vag_tvl = optimize.fused_objectives(s32, dns_panel32, 0, T_MONTHS)
+        for B in sizes:
+            p32 = torch.as_tensor(kalman_draws(s32, B, np.random.default_rng(B), TVL_DELTA),
+                                  device=dev, dtype=f32)
+            inputs = fused_kf.kernel_inputs(s32, p32, dns_panel32, 0, T_MONTHS)
+            k1_ms = cuda_ms(lambda: fused_kf.launch(inputs), reps=10)
+            args = G.core_inputs(s32, p32, dns_panel32, 0, T_MONTHS)
+            bufs = G.lay_out_tvl(*args[:10])
+            out, chk = G.launch_forward_tvl(bufs, exact)
+            g = torch.ones(B, device=dev, dtype=f32)
+            grads = G.launch_backward_tvl(bufs, exact, chk, g)
+            fwd_ms = cuda_ms(lambda: G.launch_forward_tvl(bufs, exact), reps=10)
+            bwd_ms = cuda_ms(lambda: G.launch_backward_tvl(bufs, exact, chk, g), reps=5)
+            fwd_plain_ms = bwd_plain_ms = None
+            if not exact:
+                plain = [a.detach() if torch.is_tensor(a) else a for a in args]
+                fwd_plain_ms = cuda_ms(lambda: G.forward_reference_tvl(*plain), reps=1,
+                                       warmup=0)
+                chk_plain = G.forward_reference_tvl(*plain)[1]
+                bwd_plain_ms = cuda_ms(lambda: G.adjoint_reference_tvl(
+                    *plain[:4], *plain[6:], chk_plain, g), reps=1, warmup=0)
+            X = yfm.untransform_params(s32, p32)
+            vag_ms = cuda_ms(lambda: vag_tvl(X), reps=5, warmup=2)
+            (fb, ff), (bb, bf), bf_run = grad_kernel_work(bufs, dns_panel32, out, chk, grads,
+                                                          tvl=True)
+            f_bound, f_by = bound(fb, ff)
+            b_bound, b_by = bound(bb, bf)
+            tvl_shapes[f"{B} exact={exact}"] = {
+                "K1_ms": k1_ms,
+                "K3f": {"ms": fwd_ms, "plain_ms": fwd_plain_ms, "bytes": fb, "flops": ff,
+                        "bound_ms": f_bound, "bound_by": f_by},
+                "K3b": {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bytes": bb, "flops": bf,
+                        "bound_ms": b_bound, "bound_by": b_by, "kernel_flops": bf_run},
+                "value_and_grad_ms": vag_ms, "grad_evals_per_s": B / (vag_ms * 1e-3)}
+            plain_txt = ("" if exact else f", plain {fwd_plain_ms:.1f} / "
+                         f"{bwd_plain_ms:.1f} ms")
+            print(f"  TVλ exact={exact} B={B}: K1 {k1_ms:.4f} ms, K3f {fwd_ms:.4f} ms "
+                  f"(bound {f_bound:.4f}, {f_by}), K3b {bwd_ms:.4f} ms (bound "
+                  f"{b_bound:.4f}, {b_by}; {bf / B:.0f} flop/draw needed, "
+                  f"{bf_run / B:.0f} run){plain_txt}; value-and-gradient "
+                  f"{vag_ms:.4f} ms ({B / (vag_ms * 1e-3):.0f} grad evals/s)")
+    report["tvl_shapes"] = tvl_shapes
+
+    # ---- 6. gradient pairs at full width ---------------------------------------
     print("[6] gradient pair: K2f + K2b against the plain versions")
-    grad_errs = {"K2f": [], "K2b": [], "K2b_leaves": []}
+    grad_errs = {"K2f": [], "K2b": [], "K2b_leaves": [],
+                 "K3f": [], "K3b": [], "K3b_leaves": []}
     wins = torch.as_tensor(rng.integers(0, 100, 2048), device=dev), \
         torch.as_tensor(rng.integers(200, T_MONTHS + 1, 2048), device=dev)
     dns32, _ = yfm.create_model("1C", MATURITIES)
@@ -602,195 +1000,151 @@ def main(json_path=None) -> int:
         ('"1C" NaN columns, invalid draw, per-draw windows, B=2048', dns32, dns64,
          torch.as_tensor(p_dns, device=dev), gapped, wins),
     ]
+    for exact in (False, True):
+        grad_cases.append((f"TVλ exact_jacobian={exact} B=1024",
+                           dataclasses.replace(tvl32, exact_jacobian=exact),
+                           dataclasses.replace(tvl64, exact_jacobian=exact),
+                           torch.as_tensor(kalman_draws(tvl64, 1024, rng, TVL_DELTA),
+                                           device=dev), dns_panel, None))
+    p_tvl = kalman_draws(tvl64, 2048, rng, TVL_DELTA)
+    p_tvl[5] = np.nan                                  # invalid draw
+    gapped_dns = dns_panel.copy()
+    gapped_dns[:, 50] = np.nan
+    gapped_dns[3, 120] = np.nan
+    grad_cases.append(("TVλ NaN columns, invalid draw, per-draw windows, B=2048", tvl32,
+                       tvl64, torch.as_tensor(p_tvl, device=dev), gapped_dns, wins))
     for what, s32, s64, p64, data_np, win in grad_cases:
+        tvl = s64.family == "kalman_tvl"
+        fwd_k, bwd_k, fwd_p, bwd_p = launch_counters(s64)
+        names = ("K3f", "K3b") if tvl else ("K2f", "K2b")
         data32 = torch.as_tensor(data_np, device=dev, dtype=f32)
         data64 = torch.as_tensor(data_np, device=dev, dtype=f64)
         X64 = yfm.untransform_params(s64, p64)
         X32 = X64.to(f32)
         kw = {} if win is None else {"win_starts": win[0], "win_ends": win[1]}
+        wkw = {} if win is None else {"starts": win[0], "ends": win[1]}
         value_fn, vag = optimize.fused_objectives(s32, data32, 0, T_MONTHS, **kw)
-        G.launch_forward.launches = G.launch_backward.launches = 0
-        G.forward_reference.calls = G.adjoint_reference.calls = 0
+        fwd_k.launches = bwd_k.launches = 0
+        fwd_p.calls = bwd_p.calls = 0
         v32, g32 = vag(X32)
         torch.cuda.synchronize()
-        n = (G.launch_forward.launches, G.launch_backward.launches,
-             G.forward_reference.calls, G.adjoint_reference.calls)
-        print(f"  {what}: K2f, K2b launches {n[:2]}, plain-version calls {n[2:]}")
+        n = (fwd_k.launches, bwd_k.launches, fwd_p.calls, bwd_p.calls)
+        print(f"  {what}: {names[0]}, {names[1]} launches {n[:2]}, plain-version calls {n[2:]}")
         check(n == (1, 1, 0, 0), f"{what}: launches/plain calls {n}")
         v_k1 = value_fn(X32)
         fin = v32 < optimize.PENALTY_THRESH
-        check(torch.equal(fin, v_k1 < optimize.PENALTY_THRESH), f"{what}: K2f and K1 disagree on validity")
-        close(v32[fin], v_k1[fin], 5e-4, 1e-2, f"{what}: f32 K2f value vs K1")
-        v_ref, g_ref = raw_value_and_grad(yfm, s64, X64, data64, PlainCore.apply, win)
+        check(torch.equal(fin, v_k1 < optimize.PENALTY_THRESH), f"{what}: {names[0]} and K1 disagree on validity")
+        if tvl:  # one recursion (kf_common.cuh) behind one set-up
+            check(torch.equal(v32, v_k1), f"{what}: f32 K3f value differs from K1's")
+            print(f"  {what}: f32 K3f value equals K1's bit for bit")
+        else:
+            close(v32[fin], v_k1[fin], 5e-4, 1e-2, f"{what}: f32 K2f value vs K1")
+        # the draws each type determines, in value (phase 3's criterion) and
+        # in gradient; all of them for DNS/AFNS, well conditioned here
+        det = {f32: fin, f64: fin}
+        if tvl:
+            for dtype in (f64, f32):  # the float64 gradient first: float32's reference
+                rtol, atol, eps = TOLS[dtype]
+                d_val = fin & determined_draws(s64, p64, data64, dtype, rtol, atol, eps,
+                                               **wkw)[0]
+                d_grad, v_p, g_p = determined_gradients(
+                    yfm, s64, X64, data64, dtype, eps, win,
+                    ref=None if dtype == f64 else g_ref)
+                if dtype == f64:
+                    v_ref, g_ref = v_p, g_p
+                else:
+                    g_plain32 = g_p
+                det[dtype] = d_val & d_grad
+                n_fin, n_val, n_both = int(fin.sum()), int(d_val.sum()), int(det[dtype].sum())
+                print(f"  {what}: {str(dtype)[-7:]} determines the value of {n_val} and "
+                      f"value and gradient of {n_both} of {n_fin} finite draws")
+                check(n_val >= 0.85 * n_fin, f"{what}: {dtype} determines too few values")
+                check(n_both >= 0.5 * n_fin, f"{what}: {dtype} determines too few gradients")
+        else:
+            v_ref, g_ref = raw_value_and_grad(yfm, s64, X64, data64, plain_core(s64), win)
         check(torch.equal(fin, v_ref < optimize.PENALTY_THRESH), f"{what}: validity differs from plain")
-        grad_errs["K2f"].append(close(v32[fin], v_ref[fin], 5e-4, 1e-2,
-                                      f"{what}: f32 value vs plain f64"))
-        cos_err, ratio_err = grad_agreement(g32[fin], g_ref[fin],
+        d32, d64 = det[f32], det[f64]
+        grad_errs[names[0]].append(close(v32[d32], v_ref[d32], 5e-4, 1e-2,
+                                         f"{what}: f32 value vs plain f64"))
+        cos_err, ratio_err = grad_agreement(g32[d32], g_ref[d32],
                                             f"{what}: f32 gradient vs plain f64")
-        grad_errs["K2b"].append({"max_one_minus_cos": cos_err,
-                                 "max_norm_ratio_err": ratio_err,
-                                 "max_abs_err": float((g32[fin].double()
-                                                       - g_ref[fin]).abs().max())})
-        v64, g64 = raw_value_and_grad(yfm, s64, X64, data64, G._KalmanCore.apply, win)
-        close(v64[fin], v_ref[fin], 1e-9, 0.0, f"{what}: f64 kernels value vs plain f64")
-        grads_close(g64[fin], g_ref[fin], 1e-6, f"{what}: f64 kernels gradient vs plain f64")
-        # K2b's raw outputs, leaf by leaf, against the plain adjoint on the
-        # same float64 inputs, checkpoints (K2f's) and gated cotangent
-        wkw = {} if win is None else {"starts": win[0], "ends": win[1]}
+        if tvl:
+            grad_agreement(g32[d32], g_plain32[d32], f"{what}: f32 gradient vs plain f32")
+        grad_errs[names[1]].append({"max_one_minus_cos": cos_err,
+                                    "max_norm_ratio_err": ratio_err,
+                                    "max_abs_err": float((g32[d32].double()
+                                                          - g_ref[d32]).abs().max())})
+        core = G._TvlCore.apply if tvl else G._KalmanCore.apply
+        v64, g64 = raw_value_and_grad(yfm, s64, X64, data64, core, win)
+        close(v64[d64], v_ref[d64], 1e-9, 0.0, f"{what}: f64 kernels value vs plain f64")
+        grads_close(g64[d64], g_ref[d64], 1e-6, f"{what}: f64 kernels gradient vs plain f64")
+        # the adjoint kernel's raw outputs, leaf by leaf, against the plain
+        # adjoint on the same float64 inputs, checkpoints and gated cotangent
         args64 = [a.detach() if torch.is_tensor(a) else a for a in G.core_inputs(
             s64, yfm.transform_params(s64, X64), data64, 0, T_MONTHS, **wkw)]
-        bufs64 = G.lay_out(*args64)
-        ll64, chk64 = G.launch_forward(bufs64)
+        if tvl:
+            bufs64 = G.lay_out_tvl(*args64[:10])
+            ll64, chk64 = G.launch_forward_tvl(bufs64, args64[10])
+        else:
+            bufs64 = G.lay_out(*args64)
+            ll64, chk64 = G.launch_forward(bufs64)
         cot = torch.rand(ll64.shape, generator=torch.Generator(device=dev).manual_seed(5),
                          device=dev, dtype=f64) + 0.5
         cot = torch.where(torch.isfinite(ll64), cot, torch.zeros_like(cot))
-        B6, Ms6 = args64[3].shape
-        chk_ref = chk64.T.reshape(B6, -1, Ms6 + Ms6 * Ms6)
-        grad_errs["K2b_leaves"].append(leaves_close(
-            G.launch_backward(bufs64, chk64, cot),
-            G.adjoint_reference(*args64[:6], *args64[8:], chk_ref, cot), 1e-6, 1e-9,
-            f"{what}: f64 K2b leaves vs plain f64 adjoint"))
+        chk_ref = chk64.T.reshape(ll64.shape[0], G._seg(T_MONTHS)[1], -1)
+        if tvl:
+            got_leaves = G.launch_backward_tvl(bufs64, args64[10], chk64, cot)
+            ref_leaves = G.adjoint_reference_tvl(*args64[:4], *args64[6:], chk_ref, cot)
+        else:
+            got_leaves = G.launch_backward(bufs64, chk64, cot)
+            ref_leaves = G.adjoint_reference(*args64[:6], *args64[8:], chk_ref, cot)
+        grad_errs[names[1] + "_leaves"].append(leaves_close(
+            got_leaves, ref_leaves, 1e-6, 1e-9,
+            f"{what}: f64 {names[1]} leaves vs plain f64 adjoint", rows=d64))
         if win is not None:
             bad = (~fin).nonzero().flatten().tolist()
             check(bad == [5], f"{what}: invalid draws {bad}, expected [5]")
             check(bool((g32[5] == 0).all()) and bool(torch.isfinite(v_k1[4])),
                   "invalid draw: gradient row must be 0 and its neighbour finite")
         else:
-            sub = slice(0, 64)
+            sub = torch.arange(64, device=dev)
             _, g_auto = raw_value_and_grad(
-                yfm, s64, X64[sub], data64,
-                lambda *a: G.forward_reference(*a)[0])
-            grads_close(g_ref[sub], g_auto, 1e-6,
-                        f"{what}: plain f64 adjoint vs autograd of the plain recursion, B=64")
+                yfm, s64, X64[sub], data64, lambda *a: fwd_p(*a)[0])
+            keep = d64[sub]
+            grads_close(g_ref[sub][keep], g_auto[keep], 1e-6,
+                        f"{what}: plain f64 adjoint vs autograd of the plain recursion, "
+                        f"B=64 ({int(keep.sum())} determined)")
 
     # ---- 7. the fused MLE ----------------------------------------------------------
-    print("[7] estimate: AFNS5, N=20, T=360, S=256, max_iters=50")
     S = 256
+    print(f"[7] estimate: AFNS5, N=20, T=360, S={S}, max_iters=50")
     # the panel simulated from the model at the first of phase 2's draws, as
     # bench.py's newton bench simulates its panel at its draws' base point
     sim = simulate_panel(spec64, draws[1024][0].cpu().numpy(), seed=9)
-    sim32 = torch.as_tensor(sim, device=dev, dtype=f32)
     starts = make_param_batch(spec.n_params, S, seed=11)
-    # the starts as estimate makes them: untransformed on the host in float64
-    raw0_64 = torch.as_tensor(optimize._sanitize(
-        yfm.untransform_params(spec, torch.as_tensor(starts))), device=dev)
-    raw0 = raw0_64.to(f32)
-    f_start = optimize.fused_objectives(spec, sim32, 0, T_MONTHS)[0](raw0)
-    best_start = float((-f_start).max())
-    grad_calls = [0]
-    make_objectives = optimize.fused_objectives
+    fits = {"AFNS5": full_width_fit(yfm, optimize, spec, spec64, sim, starts, dev)}
+    print(f"[7] estimate: TVλ, N=20, T=360, S={S}, max_iters=50")
+    tvl_starts = kalman_draws(tvl64, S, np.random.default_rng(13), TVL_DELTA)
+    sim_tvl = simulate_panel(tvl64, tvl_starts[0], seed=17)
+    fits["TVλ"] = full_width_fit(yfm, optimize, tvl32, tvl64, sim_tvl, tvl_starts, dev)
+    report["estimate"] = fits
 
-    def counted_objectives(*a, **k):
-        value_fn, vag = make_objectives(*a, **k)
-
-        def counted(X):
-            grad_calls[0] += 1
-            return vag(X)
-        return value_fn, counted
-
-    optimize.fused_objectives = counted_objectives
-    try:
-        fused_kf.batched_loglik.launches = 0
-        G.launch_forward.launches = G.launch_backward.launches = 0
-        G.forward_reference.calls = G.adjoint_reference.calls = 0
-        fused_kf.batched_loglik_reference.calls = 0
-        t0 = time.perf_counter()
-        _, ll_fit, best_p, conv = yfm.estimate(spec, sim, starts.T, max_iters=50)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        counts = {"K1": fused_kf.batched_loglik.launches,
-                  "K2f": G.launch_forward.launches, "K2b": G.launch_backward.launches,
-                  "value_and_grad_calls": grad_calls[0],
-                  "plain": (G.forward_reference.calls, G.adjoint_reference.calls,
-                            fused_kf.batched_loglik_reference.calls)}
-    finally:
-        optimize.fused_objectives = make_objectives
-    fit_report = yfm.last_multistart_report()
-    print(f"  main path: {counts}")
-    check(counts["K1"] >= 1, "the Armijo probes never launched K1")
-    check(counts["K2f"] == counts["K2b"] == counts["value_and_grad_calls"] >= 1,
-          f"K2f/K2b launches differ from the value-and-gradient calls: {counts}")
-    check(counts["plain"] == (0, 0, 0), f"plain versions ran on the card: {counts}")
-    check(math.isfinite(ll_fit), f"estimate: non-finite ll {ll_fit}")
-    iters = np.array(fit_report["iters"])
-    moved = int((iters > 0).sum())
-    lls_fit = torch.as_tensor(fit_report["lls"], dtype=f64)
-    # K1 (the starts' values here) and K2f (the optimizer's) run one float32
-    # recursion (kf_common.cuh) behind separate set-ups: allow their
-    # rounding, rtol 1e-6.  A start that did not move keeps its value; one
-    # that moved passed Armijo tests and must have gained.
-    f_start64 = -f_start.double().cpu()
-    still = iters == 0
-    check(bool(((lls_fit - f_start64).abs()[still]
-                <= 1e-6 * f_start64.abs()[still]).all()),
-          "estimate: a start that did not move changed its value")
-    check(bool((lls_fit[~still] > f_start64[~still]).all()),
-          "estimate: a start that moved did not gain")
-    check(moved == 0 or ll_fit > best_start,
-          f"estimate: ll {ll_fit} not above the best start's {best_start}")
-    check(ll_fit >= best_start - 1e-6 * abs(best_start),
-          f"estimate: ll {ll_fit} below the best start's {best_start}")
-    if moved < S:
-        # The reference's first step is −g from α = 1 with at most 25
-        # backtracks by 0.8: show that a start that stopped there had no
-        # Armijo point, in float64 through the plain versions — the plain
-        # adjoint's gradient at the start and the plain loglik at all 25
-        # probes of every such start, in one batch.
-        X = raw0_64[torch.as_tensor(still, device=dev)]
-        f0, g0 = raw_value_and_grad(yfm, spec64, X, torch.as_tensor(sim, device=dev),
-                                    PlainCore.apply)
-        alphas = 0.8 ** torch.arange(25, device=dev, dtype=f64)
-        probes = (X[None] - alphas[:, None, None] * g0[None]).reshape(-1, X.shape[1])
-        ll_p = fused_kf.batched_loglik_reference(
-            spec64, yfm.transform_params(spec64, probes), torch.as_tensor(sim, device=dev))
-        f_p = torch.where(torch.isfinite(ll_p), -ll_p, torch.full_like(ll_p, 1e12))
-        armijo = f_p.reshape(25, -1) <= f0[None] - 1e-4 * alphas[:, None] * (g0 * g0).sum(1)[None]
-        check(not bool(armijo.any()), f"estimate: {int(armijo.any(0).sum())} starts that "
-              "stopped have an Armijo point in float64")
-        gnorm = g0.norm(dim=1)
-        print(f"  {S - moved} starts stopped at iteration 0; float64 check: no Armijo "
-              f"point among their 25 probes along −g (‖g‖ {float(gnorm.min()):.3e} "
-              f"… {float(gnorm.max()):.3e})")
-    # the share of the wall that the trust-but-verify re-evaluation takes:
-    # the same plain-engine call on the winner, timed again
-    t0 = time.perf_counter()
-    yfm.get_loss(spec, best_p, sim)
-    torch.cuda.synchronize()
-    verify_s = time.perf_counter() - t0
-    print(f"  ll {ll_fit:.4f} (best start {best_start:.4f}), {conv}, "
-          f"iterations max {iters.max()}, starts that moved {moved}/{S}, "
-          f"wall {fit_s:.2f} s (the plain re-evaluation alone {verify_s:.2f} s); "
-          f"trust-but-verify passed")
-    report["estimate"] = {"S": S, "ll": ll_fit, "best_start_ll": best_start,
-                          "iterations_max": int(iters.max()), "starts_moved": moved,
-                          "converged": bool(conv), "wall_s": fit_s,
-                          "verify_s": verify_s, "counts": counts}
-
-    print('  "1C", N=6, T=60, S=3: the card against the CPU')
     mats6 = tuple(np.array([3, 12, 36, 84, 180, 360]) / 12.0)
-    s6, _ = yfm.create_model("1C", mats6)
-    r6 = np.random.default_rng(0)
-    data6 = 0.5 * r6.standard_normal((6, 60))
-    # a panel of unit scale, on which the first steepest-descent step can
-    # pass the Armijo test (tests/test_torch_estimation.py's 1C MLE)
-    base6 = np.zeros(s6.n_params)
-    base6[s6.layout["gamma"][0]] = math.log(0.49)
-    base6[s6.layout["obs_var"][0]] = 0.25
-    base6[2:8] = [0.3, 0.01, 0.3, 0.01, 0.01, 0.3]      # chol, column by column
-    base6[s6.layout["phi"][0]:] = (0.5 * np.eye(3)).reshape(-1)
-    starts6 = np.stack([base6 * (1 + 0.05 * r6.standard_normal(s6.n_params))
-                        for _ in range(3)], axis=1)
-    raw6 = yfm.untransform_params(s6, torch.as_tensor(starts6.T)).to(f32)
-    best6 = float((-optimize.fused_objectives(s6, torch.as_tensor(data6, dtype=f32),
-                                              0, 60)[0](raw6)).max())
-    _, ll_card, _, conv_card = yfm.estimate(s6, data6, starts6, max_iters=20)
-    _, ll_cpu, _, conv_cpu = yfm.estimate(s6, data6, starts6, max_iters=20, device="cpu")
-    print(f"  card ll {ll_card:.6f} ({conv_card}), CPU ll {ll_cpu:.6f} ({conv_cpu}), "
-          f"best start {best6:.6f}")
-    check(conv_card.iterations > 0 and ll_card > best6,
-          "the small fit did not move on the card")
-    check(abs(ll_card - ll_cpu) <= 1e-3 * abs(ll_cpu),
-          "the small fit on the card and on the CPU differ by more than rtol 1e-3")
+    # TVλ from σ² = 0.25 stops at iteration 0, its first step −g too long
+    # for 25 backtracks; from σ² = 1 it moves
+    for code, obs_var in (("1C", 0.25), ("TVλ", 1.0)):
+        print(f'  "{code}", N=6, T=60, S=3: the card against the CPU')
+        small_fit(yfm, optimize, code, mats6, obs_var)
+
+    # ---- 8. rolling-window re-estimation ---------------------------------------------
+    W, S8 = 8, 32
+    ends = [248 + 16 * w for w in range(W)]
+    print(f"[8] estimate_windows: W={W} expanding windows [0, 248+16w) × S={S8} starts")
+    report["estimate_windows"] = {}
+    for label, s32, sim_np, starts_np in (("AFNS5", spec, sim, starts[:S8]),
+                                          ("TVλ", tvl32, sim_tvl, tvl_starts[:S8])):
+        report["estimate_windows"][label] = windows_fit(yfm, optimize, label, s32, sim_np,
+                                                        starts_np, ends)
 
     head = shapes["1024"]
     kernels = [{
@@ -802,23 +1156,32 @@ def main(json_path=None) -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "shapes": shapes,
     }]
-    for name, replaces, err in (
-            ("K2f", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:127",
-             max(grad_errs["K2f"])),
-            ("K2b", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:181",
-             max(e["max_abs_err"] for e in grad_errs["K2b"]))):
-        k = grad_shapes["1024"][name]
-        kernels.append({
+    pairs = (("K2f", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:127", "AFNS5"),
+             ("K2b", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:181", "AFNS5"),
+             ("K3f", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:414", "TVλ"),
+             ("K3b", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:452", "TVλ"))
+    for name, replaces, fit in pairs:
+        errs_k = grad_errs[name]
+        err = max(errs_k) if name.endswith("f") else max(e["max_abs_err"] for e in errs_k)
+        if name.startswith("K2"):
+            k, by_shape = grad_shapes["1024"][name], {B: v[name] for B, v in grad_shapes.items()}
+        else:
+            k = tvl_shapes["1024 exact=False"][name]
+            by_shape = {key: v[name] for key, v in tvl_shapes.items()}
+        entry = {
             "name": f"{name} fused_kf_grad", "route": "cuda",
             "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_kf_grad.cu",
-            "replaces": replaces, "launches": counts[name], "max_abs_err": err,
-            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
-            "shapes": {B: v[name] for B, v in grad_shapes.items()}})
-    kernels[-1]["gradient_criterion"] = {
-        key: max(e[key] for e in grad_errs["K2b"])
-        for key in ("max_one_minus_cos", "max_norm_ratio_err")}
-    kernels[-1]["f64_leaf_error_over_scale"] = max(grad_errs["K2b_leaves"])
+            "replaces": replaces,
+            "launches": fits[fit]["counts"]["forward" if name.endswith("f") else "backward"],
+            "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+            "shapes": by_shape}
+        if name.endswith("b"):
+            entry["gradient_criterion"] = {
+                key: max(e[key] for e in errs_k)
+                for key in ("max_one_minus_cos", "max_norm_ratio_err")}
+            entry["f64_leaf_error_over_scale"] = max(grad_errs[name + "_leaves"])
+        kernels.append(entry)
     report["kernels"] = kernels
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)

@@ -186,3 +186,98 @@ def test_estimate_on_the_card_matches_the_cpu(card):
                                                device="cpu")
     assert conv_card.iterations > 0
     np.testing.assert_allclose(ll_card, ll_cpu, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+def test_fused_kf_tvl_grad_matches_plain_versions(card, exact):
+    """K3f/K3b against the plain versions in float64, under both Jacobian
+    settings, with interior NaN columns, per-draw windows and a NaN draw:
+    through autograd, value rtol 1e-9 and gradient rtol 1e-6 of each draw's
+    largest component; K3b's six raw outputs on the same inputs, K3f's
+    checkpoints and a random cotangent, leaf by leaf (rtol 1e-6, atol 1e-9 ×
+    the leaf's largest entry in the draw); K3f's value equal to K1's."""
+    import dataclasses
+
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    rng = np.random.default_rng(3)
+    spec, _ = P.create_model("TVλ", MATS, float_type="float64")
+    spec = dataclasses.replace(spec, exact_jacobian=exact)
+    B, T = 200, 29
+    p = _draws(spec, B, rng)
+    p[3] = np.nan                                   # gated: −inf, zero rows
+    data = 0.5 * rng.standard_normal((len(MATS), T)) + 4
+    data[:, 11] = np.nan
+    data[2, 17] = np.nan
+    win = {"starts": torch.as_tensor(rng.integers(0, 6, B)),
+           "ends": torch.as_tensor(rng.integers(18, T + 1, B))}
+    ref_v, ref_g = _raw_value_and_grad(spec, torch.as_tensor(p), torch.as_tensor(data),
+                                       torch.float64, device="cpu", **win)
+    fin = torch.isfinite(ref_v)
+    assert not fin[3] and int(fin.sum()) == B - 1
+    p_card, d_card = torch.as_tensor(p, device=card), torch.as_tensor(data, device=card)
+    card_win = {k: v.to(card) for k, v in win.items()}
+    launches = (G.launch_forward_tvl.launches, G.launch_backward_tvl.launches)
+    v64, g64 = _raw_value_and_grad(spec, p_card, d_card, torch.float64, **card_win)
+    torch.cuda.synchronize()
+    assert (G.launch_forward_tvl.launches,
+            G.launch_backward_tvl.launches) == (launches[0] + 1, launches[1] + 1)
+    v64, g64 = v64.cpu(), g64.cpu()
+    assert torch.equal(torch.isfinite(v64), fin)
+    np.testing.assert_allclose(v64[fin].numpy(), ref_v[fin].numpy(), rtol=1e-9)
+    scale = ref_g[fin].abs().amax(1, keepdim=True)
+    assert ((g64[fin] - ref_g[fin]).abs() <= 1e-6 * (ref_g[fin].abs() + scale)).all()
+
+    args = G.core_inputs(spec, p_card, d_card, 0, T, **card_win)
+    bufs = G.lay_out_tvl(*args[:10])
+    ll, chk = G.launch_forward_tvl(bufs, exact)
+    k1 = fused_kf.launch(fused_kf.kernel_inputs(spec, p_card, d_card, 0, T, **card_win))
+    assert torch.equal(ll, k1)
+    g = torch.as_tensor(rng.uniform(0.5, 1.5, B), device=card)
+    g = torch.where(torch.isfinite(ll), g, torch.zeros_like(g))
+    got = G.launch_backward_tvl(bufs, exact, chk, g)
+    ref = G.adjoint_reference_tvl(*args[:4], *args[6:], chk.T.reshape(B, -1, 20), g)
+    for k, r in zip(got, ref):
+        r = r.reshape(B, -1)
+        k = k.T.reshape(r.shape)
+        leaf_scale = r.abs().amax(1, keepdim=True)
+        assert ((k - r).abs() <= 1e-6 * r.abs() + 1e-9 * leaf_scale).all()
+        assert (k[3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["1C", "TVλ"])
+def test_estimate_windows_on_the_card_matches_the_cpu(card, code):
+    """estimate_windows (W=2 windows × S=3 starts, N=6, T=60, float32) on the
+    card against the same call on the CPU: every cell's ll within rtol
+    1e-3, as the fused estimate's card test allows for Armijo decisions on
+    float32 values rounded in another order."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    mats = tuple(np.array([3, 12, 36, 84, 180, 360]) / 12.0)
+    spec, _ = P.create_model(code, mats)
+    rng = np.random.default_rng(0)
+    data = 0.5 * rng.standard_normal((6, 60))
+    base = np.zeros(spec.n_params)
+    base[spec.layout["obs_var"][0]] = 1.0
+    a, _ = spec.layout["chol"]
+    for k, (r, c) in enumerate(zip(*spec.chol_indices)):
+        base[a + k] = 0.3 if r == c else 0.01
+    lo, hi = spec.layout["phi"]
+    base[lo:hi] = (0.5 * np.eye(spec.state_dim)).reshape(-1)
+    if "gamma" in spec.layout:
+        base[spec.layout["gamma"][0]] = np.log(0.49)
+    else:
+        base[spec.layout["delta"][0] + 3] = 0.5 * np.log(0.49)
+    starts = np.stack([base * (1 + 0.05 * rng.standard_normal(spec.n_params))
+                       for _ in range(3)])
+    raw = P.untransform_params(spec, torch.as_tensor(starts)).numpy()
+    counter = G.launch_backward_tvl if code == "TVλ" else G.launch_backward
+    launches = counter.launches
+    xs_card, ll_card = P.estimate_windows(spec, data, raw, [0, 10], [50, 60], max_iters=10)
+    assert counter.launches > launches
+    xs_cpu, ll_cpu = P.estimate_windows(spec, data, raw, [0, 10], [50, 60], max_iters=10,
+                                        device="cpu")
+    assert xs_card.shape == xs_cpu.shape == (2, 3, spec.n_params)
+    np.testing.assert_allclose(ll_card, ll_cpu, rtol=1e-3)

@@ -16,6 +16,8 @@ shape of test_fused_estimate_composition_interpret, both in float32: ll
 within rtol 1e-4 (float32 sums in another order).
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -27,6 +29,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import yieldfactormodels_jl_tpu as J  # noqa: E402
 import yieldfactormodels_jl_tpu_torch as P  # noqa: E402
+from tests import oracle  # noqa: E402
 from yieldfactormodels_jl_tpu.estimation import optimize as jopt  # noqa: E402
 from yieldfactormodels_jl_tpu.estimation.batched_lbfgs import batched_lbfgs as jax_lbfgs  # noqa: E402
 from yieldfactormodels_jl_tpu_torch.estimation import optimize as topt  # noqa: E402
@@ -173,6 +176,106 @@ def test_estimate_matches_jax_fused_estimate(yields_panel):
                                jax_loss, rtol=1e-5)
 
 
+MATS6 = tuple(np.array([3, 12, 36, 84, 180, 360]) / 12.0)
+T_FIT = 24
+
+
+def _stable_tvl(spec, obs_var=0.25, chol=0.3, phi=0.5):
+    """A stationary TVλ point at the scale of a unit panel: β₁…₃ around 0,
+    λ around 0.5."""
+    p = np.zeros(spec.n_params)
+    p[spec.layout["obs_var"][0]] = obs_var
+    a, _ = spec.layout["chol"]
+    for k, (r, c) in enumerate(zip(*spec.chol_indices)):
+        p[a + k] = chol if r == c else 0.01
+    lo, hi = spec.layout["delta"]
+    p[lo:hi] = [0.0, 0.0, 0.0, (1 - phi) * np.log(0.49)]
+    lo, hi = spec.layout["phi"]
+    p[lo:hi] = (phi * np.eye(4)).reshape(-1)
+    return p
+
+
+def _fit_case(code):
+    """(JAX spec, port spec, unit-scale (6, T_FIT) panel, (4, P) raw starts
+    around a stationary point), float64."""
+    js, _ = J.create_model(code, MATS6, float_type="float64")
+    ts, _ = P.create_model(code, MATS6, float_type="float64")
+    rng = np.random.default_rng(0)
+    data = 0.5 * rng.standard_normal((len(MATS6), T_FIT))
+    base = _stable_tvl(ts) if code == "TVλ" else _stable_1c(ts)
+    starts = np.stack([base * (1 + 0.05 * rng.standard_normal(ts.n_params))
+                       for _ in range(4)])
+    raw = np.nan_to_num(P.untransform_params(ts, torch.tensor(starts)).numpy())
+    return js, ts, data, raw
+
+
+FIT_KW = {"max_iters": 3, "g_tol": 1e-6, "f_abstol": 1e-6}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_windowed_lbfgs(js):
+    """JAX's batched L-BFGS over jax.value_and_grad of its float64 univariate
+    objective, each of 4 rows with its own [start, end): one compile per
+    spec, shared by the estimate and estimate_windows tests."""
+    def run(X0, data, starts, ends):
+        def objective(r, s, e):
+            return jopt._finite_objective(js, data, r, s, e)
+
+        def vag(X):
+            return jax.vmap(jax.value_and_grad(objective))(X, starts, ends)
+
+        return jax_lbfgs(vag, X0, **FIT_KW, invalid_above=topt.PENALTY_THRESH,
+                         value_fn=lambda X: jax.vmap(objective)(X, starts, ends))
+
+    return jax.jit(run)
+
+
+def test_tvl_estimate_matches_jax_lbfgs():
+    """TVλ estimate (N=6, T=24, S=3 on a unit-scale panel, float64) against
+    JAX's batched L-BFGS on its univariate objective from the same starts
+    (a fourth row, the last start again, is dropped): the same iterations
+    and best start, every start's final NLL within rtol 1e-6 (two float64
+    implementations of one likelihood, ~1e-12 apart per evaluation, over
+    a few L-BFGS steps)."""
+    js, ts, data, raw = _fit_case("TVλ")
+    X0 = raw[[0, 1, 2, 2]]
+    ref = _jax_windowed_lbfgs(js)(jnp.asarray(X0), jnp.asarray(data),
+                                  jnp.zeros(4, jnp.int32), jnp.full(4, T_FIT, jnp.int32))
+    ref_ll = -np.asarray(ref.f)[:3]
+    calls = (fused_kf_grad.forward_reference_tvl.calls,
+             fused_kf_grad.adjoint_reference_tvl.calls)
+    starts = P.transform_params(ts, torch.tensor(raw[:3])).numpy().T
+    _, ll, _, conv = P.estimate(ts, data, starts, device=CPU, **FIT_KW)
+    rep = P.last_multistart_report()
+    assert fused_kf_grad.forward_reference_tvl.calls > calls[0]
+    assert fused_kf_grad.adjoint_reference_tvl.calls > calls[1]
+    assert rep["iters"] == np.asarray(ref.iters)[:3].tolist() and min(rep["iters"]) > 0
+    assert rep["best"] == int(np.argmax(ref_ll)) and conv.iterations == rep["iters"][rep["best"]]
+    np.testing.assert_allclose(rep["lls"], ref_ll, rtol=1e-6)
+    np.testing.assert_allclose(ll, ref_ll.max(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("code", ["1C", "TVλ"])
+def test_estimate_windows_matches_jax_lbfgs(code):
+    """estimate_windows over W=2 windows ([0, 20), [3, 24)) × S=2 starts
+    against JAX's batched L-BFGS on the same 4 rows with per-row windows:
+    each cell's final NLL within rtol 1e-6, the same best start per window
+    and the same iterations."""
+    js, ts, data, raw = _fit_case(code)
+    ws, we = np.array([0, 3]), np.array([20, T_FIT])
+    ref = _jax_windowed_lbfgs(js)(jnp.asarray(raw[[0, 1, 0, 1]]), jnp.asarray(data),
+                                  jnp.asarray(np.repeat(ws, 2), jnp.int32),
+                                  jnp.asarray(np.repeat(we, 2), jnp.int32))
+    ref_ll = -np.asarray(ref.f).reshape(2, 2)
+    xs, lls = P.estimate_windows(ts, data, raw[:2], ws, we, device=CPU, **FIT_KW)
+    assert xs.shape == (2, 2, ts.n_params) and lls.shape == (2, 2)
+    assert (np.asarray(ref.iters) > 0).all()
+    np.testing.assert_allclose(lls, ref_ll, rtol=1e-6)
+    np.testing.assert_array_equal(lls.argmax(1), ref_ll.argmax(1))
+    # each window's rows moved as JAX's did: the same accepted points
+    np.testing.assert_allclose(xs.reshape(4, -1), np.asarray(ref.x), rtol=1e-5, atol=1e-8)
+
+
 def _chip_smoke():
     """chip_smoke.py (repository root) as a module: its panel and draws."""
     import importlib.util
@@ -244,13 +347,33 @@ def test_estimate_refuses_what_is_not_ported(kw, env, match, yields_panel, monke
         P.estimate(ts, data, starts, max_iters=1, device=CPU, **kw)
 
 
+@pytest.mark.parametrize("kw,env,match", [
+    ({"objective": "vmap"}, {}, "Queue 1 item 4"),
+    ({"objective": "time_sharded"}, {}, "Queue 1 item 10"),
+    ({"second_order": True}, {}, "Newton polish"),
+    ({}, {"YFM_NEWTON": "1"}, "Newton polish"),
+    ({"warm_start": True}, {}, "amortized warm start"),
+    ({}, {"YFM_AMORT": "1"}, "amortized warm start"),
+    ({}, {"YFM_ESCALATE": "1"}, "escalation ladder"),
+])
+def test_estimate_windows_refuses_what_is_not_ported(kw, env, match, yields_panel,
+                                                     monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ts, data, starts = _tiny(yields_panel)
+    raw = P.untransform_params(ts, torch.tensor(starts.T)).numpy()
+    with pytest.raises(NotImplementedError, match=match):
+        P.estimate_windows(ts, data, raw, [0], [10], max_iters=1, device=CPU, **kw)
+
+
 def test_estimate_errors_and_device_rule(yields_panel):
     ts, data, starts = _tiny(yields_panel)
     with pytest.raises(ValueError, match="unknown objective 'newton'; pick from"):
         P.estimate(ts, data, starts, objective="newton", device=CPU)
-    tvl, _ = P.create_model("TVλ", ts.maturities)
-    with pytest.raises(NotImplementedError, match="Queue 2 K3f/K3b"):
-        P.estimate(tvl, data, np.zeros((tvl.n_params, 1)), device=CPU)
+    tvl, _ = P.create_model("TVλ", ts.maturities)  # TVλ runs (K3f/K3b)
+    _, ll, _, _ = P.estimate(tvl, data, oracle.stable_tvl_params(tvl)[:, None],
+                             max_iters=1, device=CPU)
+    assert np.isfinite(ll)
     ssd, _ = P.create_model("1SSD-NNS", ts.maturities)
     with pytest.raises(NotImplementedError, match="not ported"):
         P.estimate(ssd, data, np.zeros((ssd.n_params, 1)), device=CPU)

@@ -224,9 +224,9 @@ def test_kalman_core_gradcheck(rng):
 
 
 def test_unsupported_families_and_devices(rng):
-    _, tvl = _specs("TVλ")
-    with pytest.raises(NotImplementedError, match="Queue 2 K3f/K3b"):
-        P.batched_loglik_diff(tvl, _params(tvl, 2, rng), _panel(rng, 6), device=CPU)
+    _, tvl = _specs("TVλ")  # TVλ runs (K3f/K3b's plain versions on the CPU)
+    v = P.batched_loglik_diff(tvl, _params(tvl, 2, rng), _panel(rng, 6), device=CPU)
+    assert v.shape == (2,) and bool(torch.isfinite(v).all())
     ns, _ = P.create_model("NS", MATS, float_type="float64")
     with pytest.raises(ValueError, match="kalman families"):
         P.batched_loglik_diff(ns, np.zeros((2, ns.n_params)), _panel(rng, 6), device=CPU)

@@ -6,11 +6,13 @@ kernels for Hopper under ``csrc/``.  Ported so far: model specs and the zoo
 registry, parameter transforms and unpacking, DNS/AFNS loadings, the Kalman
 log-likelihood (univariate and joint engines), ``predict``, the fused
 batched log-likelihood kernel, its differentiable twin (forward and adjoint
-kernels) and the fused multi-start MLE ``estimate``.
+kernels, for DNS/AFNS and the TVλ EKF), the fused multi-start MLE
+``estimate`` and its rolling-window form ``estimate_windows``.
 """
 
 from .carry import params_from_jax
-from .estimation.optimize import Convergence, estimate, last_multistart_report
+from .estimation.optimize import (Convergence, estimate, estimate_windows,
+                                  last_multistart_report)
 from .models.api import get_loss, predict
 from .models.params import transform_params, untransform_params
 from .models.registry import create_model
@@ -19,5 +21,5 @@ from .ops.fused_kf_grad import batched_loglik_diff
 
 __all__ = ["create_model", "transform_params", "untransform_params",
            "get_loss", "predict", "batched_loglik", "batched_loglik_diff",
-           "estimate", "last_multistart_report", "Convergence",
+           "estimate", "estimate_windows", "last_multistart_report", "Convergence",
            "params_from_jax"]

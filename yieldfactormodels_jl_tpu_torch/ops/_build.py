@@ -31,7 +31,9 @@ KERNELS = {
         "yfm_fused_kf": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14}),
     "fused_kf_grad": ("fused_kf_grad.cu", {
         "yfm_kf_grad_fwd": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 14,
-        "yfm_kf_grad_bwd": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 22}),
+        "yfm_kf_grad_bwd": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 22,
+        "yfm_kf_tvl_grad_fwd": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13,
+        "yfm_kf_tvl_grad_bwd": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 19}),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
