@@ -65,6 +65,39 @@ Phases (any failure raises and the script exits non-zero):
    panels: W=8 expanding windows [0, 248+16w) × S=32 starts (256 draws),
    launch counts as in 7; each window's best ll against ``estimate`` on
    that window alone from the same starts, at rtol 1e-5; the wall time.
+9. K4 at full width — the score-driven loss kernel on bench's DNS panel
+   (benchmarks/common.py's, seed 0, +4), N=20, T=360: 1SSD-NNS and SSD-NS at
+   B=257 (the A×B grid around bench's ``ssd_nns_params``, filled with
+   jittered copies) and B=2048.  The float64 kernel against the plain
+   float64 version at rtol 1e-6, the float32 kernel against the plain
+   float64 and float32 versions at rtol 2e-2 (bench.py's bar for the
+   float32 kernel), each type on the draws whose loss it determines (the
+   plain version moves by less than a quarter of the tolerance under ±1e-15
+   resp. ±1e-7 relative nudges, and for float32 the plain float32 loss is
+   within a quarter of it of the plain float64 one; with the draws that are
+   −inf under every nudge, at least 85% of draws; counts printed).  Where
+   the plain version is −inf under every nudge the kernel must be −inf, and
+   finite where it determines a finite value.
+   Then 1RWSD-NNS, 1SD-NNS-Anchored, 3SRWSD-NNS-Anchored and SRWSD-NS at
+   B=512 on the panel with a NaN column at the window's first step (a
+   transition-only step that is no target) and a partially NaN column
+   after the window's end, window [120, 300): finite; the window [130,
+   340), which observes the partial column: −Inf; an invalid draw: −Inf.
+10. K4 timing — CUDA events at B=1, 23, 257, 16384 for 1SSD-NNS and SSD-NS,
+    float32; the plain version once at B=257; the bound from the operation
+    count of the recursion on these inputs.
+11. ``estimate_steps`` on bench's config 6 ("ssd-nns-m3"): 1SSD-NNS, N=20,
+    T=360, the DNS panel, 3 jittered starts of ``ssd_nns_params``, the
+    default groups (Nelder–Mead, 500 iterations, on the 22-parameter head;
+    the closed-form (δ, Φ) solve), 10 group iterations, with the launch
+    counts set to 0 just before it: K4 ≥ 1, its plain version 0.  The grid
+    winner is the plain float64 version's, or their plain float64 losses
+    differ by less than the float32 tolerance; the ll is finite and no
+    worse than the grid winner's; the kernel-reported optimum agrees with
+    the plain scan on the card at rtol 2e-2; ``predict`` with a 12-column
+    NaN tail on the card matches the CPU in float64 at rtol 1e-6.  Prints
+    the wall, group iterations, launches and where the wall went (K4's
+    device time from CUDA events around each launch, the phases' walls).
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON object {"kernels": [...]} with each kernel's launches on the
@@ -753,6 +786,171 @@ def windows_fit(yfm, optimize, label, spec, sim, starts, ends):
             "max_rel_err": float((err / np.abs(alone)).max())}
 
 
+# ---- this script's copies of benchmarks/common.py's config-6 inputs ---------
+
+def bench_dns_panel(seed=0, lam=0.5, T=T_MONTHS):
+    """benchmarks/common.py's 3-factor DNS DGP panel (N, T), level +4."""
+    rng = np.random.default_rng(seed)
+    tau = lam * MATURITIES
+    Z = np.ones((N_MATURITIES, 3))
+    Z[:, 1] = (1 - np.exp(-tau)) / tau
+    Z[:, 2] = Z[:, 1] - np.exp(-tau)
+    Phi = np.diag([0.98, 0.94, 0.9])
+    delta = np.array([0.08, -0.06, 0.03])
+    x = np.linalg.solve(np.eye(3) - Phi, delta)
+    data = np.zeros((N_MATURITIES, T))
+    for t in range(T):
+        x = delta + Phi @ x + 0.05 * rng.standard_normal(3)
+        data[:, t] = Z @ x + 0.02 * rng.standard_normal(N_MATURITIES)
+    return data + 4.0
+
+
+def ssd_nns_params(spec):
+    """benchmarks/common.py's constrained 1SSD-NNS point (layout-driven, so
+    it serves every score-driven code): A = 1e-4, B = 0.98, ω ~ N(0, 0.1²),
+    δ = (0.3, −0.1, 0.05), Φ = diag(0.95, 0.9, 0.85)."""
+    rng = np.random.default_rng(3)
+    p = np.zeros(spec.n_params)
+    p[slice(*spec.layout["A"])] = 1e-4
+    if "B" in spec.layout:
+        p[slice(*spec.layout["B"])] = 0.98
+    lo, hi = spec.layout["omega"]
+    p[lo:hi] = rng.standard_normal(hi - lo) / 10
+    p[slice(*spec.layout["delta"])] = [0.3, -0.1, 0.05]
+    p[slice(*spec.layout["phi"])] = np.diag([0.95, 0.9, 0.85]).T.reshape(-1)
+    return p
+
+
+def jitter_starts(p, n_starts, seed=1, scale=0.05):
+    """benchmarks/common.py's (S, P) jittered copies of ``p``."""
+    rng = np.random.default_rng(seed)
+    out = np.tile(p, (n_starts, 1))
+    out += scale * rng.standard_normal(out.shape) * np.maximum(np.abs(p), 0.01)[None, :]
+    return out
+
+
+def ssd_draws(spec, base, B, seed):
+    """(B, P) draws: ``base``, its A×B initialization grid, then jittered
+    copies of ``base`` (scale 0.02) up to B."""
+    from yieldfactormodels_jl_tpu_torch.models.params import get_new_initial_params
+
+    rows = [base]
+    t = 1
+    while len(rows) < B:
+        cand = get_new_initial_params(spec, base, t)
+        if cand is None:
+            break
+        rows.append(cand)
+        t += 1
+    if len(rows) < B:
+        rows.extend(jitter_starts(base, B - len(rows), seed=seed, scale=0.02))
+    return np.stack(rows[:B])
+
+
+def ssd_determined(spec64, p64, data64, dtype, rtol, eps, start=0, end=None):
+    """The draws whose score-driven loss the float type determines: the plain
+    version in ``dtype`` moves by less than a quarter of rtol when the
+    constrained parameters move by eps, −eps and 3·eps, relative (one
+    batched call).  The recursion amplifies rounding on wild draws of the
+    grid.  Returns (mask, the plain value, the mask of draws that are −inf
+    under every nudge)."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_ssd
+
+    nudges = (0.0, eps, -eps, 3 * eps)
+    pd = p64.to(dtype)
+    ll = fused_ssd.batched_loss_reference(  # in the tensors' type
+        spec64, torch.cat([pd * (1 + n) for n in nudges]), data64.to(dtype), start,
+        end).reshape(len(nudges), -1)
+    ref = ll[0]
+    det = torch.isfinite(ref) & ((ll[1:] - ref).abs() <= rtol * ref.abs() / 4).all(0)
+    return det, ref, (ll == -math.inf).all(0)
+
+
+def ssd_flops(spec, data, start=0, end=None):
+    """Operations of one draw's score-driven pass on this panel and window,
+    each arithmetic operation, tanh, exp, sqrt and pow counted once.  Per
+    observed step: two loading builds (the third, Z of the next γ, is the
+    next step's first), two OLS (seven maturity sums, 2 each, and ≈30 for
+    the 3×3 Cholesky, its ridge twin and the solves), the inner sweep and
+    the L-wide γ step (≈9 a value), ν + Bγ, and Φβ (21); an unobserved step
+    keeps the transition (with a build under AR(1) dynamics); the random
+    walk builds once an observed step; each contributing step adds the
+    prediction error (7 a maturity); Z(ω) is built once.  Neural: a build is ≈38 a maturity (two 1→3→1 nets 28,
+    the two shape transforms 10) + 10, the sweep ≈83 a maturity (residual,
+    transform adjoints, the 18 MLP sums) + 20.  λ: a build 7 a maturity
+    + 2, the sweep 22 + 2."""
+    N, T = data.shape
+    if end is None:
+        end = T
+    neural = spec.family == "msed_neural"
+    L = spec.L
+    build = 38 * N + 10 if neural else 7 * N + 2
+    sweep = 83 * N + 20 if neural else 22 * N + 2
+    ols = 12 * N + 30
+    gamma_T = 2 * L if not spec.random_walk else 0
+    finite0 = torch.isfinite(data[0]).cpu()
+    ar1 = not spec.random_walk
+    flops = build
+    for t in range(T - 1):
+        obs = start <= t < end and bool(finite0[t])
+        if obs:
+            flops += (1 + ar1) * build + 2 * ols + sweep + N + 9 * L
+        else:
+            flops += ar1 * build
+        flops += gamma_T + 21
+        if start <= t <= end - 2:
+            flops += 7 * N + 1
+    return flops
+
+
+@contextlib.contextmanager
+def timed_estimate_steps(optimize, fused_ssd):
+    """Time the phases of ``estimate_steps`` inside the block: the grid
+    (``try_initializations``), the Nelder–Mead groups, the closed-form
+    groups and the trust-but-verify re-evaluation, each by its wall after a
+    synchronize; and K4's device time, from CUDA events around every launch
+    (with its batch size and the phase it ran in).  Yields the dict that
+    fills in."""
+    acc = {"grid_s": 0.0, "neldermead_s": 0.0, "closed_s": 0.0, "verify_s": 0.0,
+           "k4_events": [], "grid_winner": None, "active": "other"}
+    names = {"try_initializations": "grid_s", "_neldermead_group": "neldermead_s",
+             "_msed_closed_group": "closed_s", "_trust_but_verify": "verify_s"}
+    saved = {name: getattr(optimize, name) for name in names}
+    launch = fused_ssd.launch
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            acc["active"] = names[name]
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc["active"] = "other"
+            acc[names[name]] += time.perf_counter() - t0
+            if name == "try_initializations":
+                acc["grid_winner"] = out
+            return out
+        return run
+
+    def timed_launch(inputs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(inputs)
+        e1.record()
+        acc["k4_events"].append((inputs.out.shape[0], acc["active"], e0, e1))
+        return out
+
+    for name, fn in saved.items():
+        setattr(optimize, name, timed(name, fn))
+    fused_ssd.launch = timed_launch
+    try:
+        yield acc
+    finally:
+        for name, fn in saved.items():
+            setattr(optimize, name, fn)
+        fused_ssd.launch = launch
+
+
 def main(json_path=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1146,6 +1344,180 @@ def main(json_path=None) -> int:
         report["estimate_windows"][label] = windows_fit(yfm, optimize, label, s32, sim_np,
                                                         starts_np, ends)
 
+    # ---- 9. K4 at full width ---------------------------------------------------------
+    from yieldfactormodels_jl_tpu_torch.models import api as tapi
+    from yieldfactormodels_jl_tpu_torch.ops import fused_ssd
+
+    print("[9] K4 (score-driven loss) at full width: N=20, T=360, bench's DNS panel")
+    bpanel = bench_dns_panel()
+    bpanel64 = torch.as_tensor(bpanel, device=dev, dtype=f64)
+    bpanel32 = bpanel64.float()
+    K4_TOLS = {f64: (1e-6, 1e-15), f32: (2e-2, 1e-7)}
+    k4_errs, k4_counts = [], {}
+
+    def hold_k4(what, s64, p64, data64, start=0, end=None, expect_all_inf=False):
+        """K4 in both types against the plain versions on the draws each type
+        determines (float32 also against the plain float64); returns the
+        float32-vs-plain-float64 max abs error."""
+        s32 = dataclasses.replace(s64, dtype_name="float32")
+        dets, refs, infs = {}, {}, {}
+        for dtype, (rtol, eps) in K4_TOLS.items():
+            dets[dtype], refs[dtype], infs[dtype] = ssd_determined(
+                s64, p64, data64, dtype, rtol, eps, start, end)
+        got64 = fused_ssd.batched_loss(s64, p64, data64, start, end)
+        got32 = fused_ssd.batched_loss(s32, p64.float(), data64.float(), start, end)
+        B = p64.shape[0]
+        # −inf where the plain version is −inf under every nudge, finite where
+        # it determines a finite value; a draw on the edge of overflow (a
+        # wild grid point) may go either way in another summation order
+        for name, got, dtype in (("f64", got64, f64), ("f32", got32, f32)):
+            bad = (infs[dtype] & (got != -math.inf)) | (dets[dtype] & ~torch.isfinite(got))
+            check(not bool(bad.any()), f"{what}: {name} kernel finite pattern differs on "
+                  f"draws {bad.nonzero().flatten().tolist()[:8]}: kernel "
+                  f"{got[bad][:4].tolist()}, plain {refs[dtype][bad][:4].tolist()}")
+        if expect_all_inf:
+            check(bool(infs[f64].all()) and bool((got32 == -math.inf).all())
+                  and bool((got64 == -math.inf).all()), f"{what}: expected −inf for every draw")
+            print(f"  {what}: every draw −inf in both types and the plain version")
+            return 0.0
+        # float32 is held against float64 where its plain version also
+        # agrees with the plain float64 one to a quarter of the tolerance: it
+        # can be stable under nudges and still biased
+        agree = (refs[f32].double() - refs[f64]).abs() <= K4_TOLS[f32][0] / 4 * refs[f64].abs()
+        d64, d32 = dets[f64], dets[f32] & dets[f64] & agree
+        n64, n32 = int(d64.sum()), int(d32.sum())
+        n_inf = int((infs[f64] & infs[f32]).sum())
+        k4_counts[what] = {"B": B, "minus_inf": n_inf, "f64_determined": n64,
+                           "f32_determined": n32}
+        print(f"  {what}: −inf under every nudge {n_inf} of {B}; of the rest f64 determines "
+              f"{n64}, f32 {n32}")
+        check(min(n64, n32) + n_inf >= 0.85 * B, f"{what}: too few determined draws")
+        close(got64[d64], refs[f64][d64], 1e-6, 0.0, f"{what}: f64 kernel vs plain f64")
+        err = close(got32[d32], refs[f64][d32], 2e-2, 0.0, f"{what}: f32 kernel vs plain f64")
+        close(got32[d32], refs[f32][d32], 2e-2, 0.0, f"{what}: f32 kernel vs plain f32")
+        return err
+
+    ssd_specs = {}
+    for code in ("1SSD-NNS", "SSD-NS"):
+        s64, _ = yfm.create_model(code, MATURITIES, float_type="float64")
+        ssd_specs[code] = s64
+        base = ssd_nns_params(s64)
+        for B in (257, 2048):
+            p64 = torch.as_tensor(ssd_draws(s64, base, B, seed=B), device=dev)
+            k4_errs.append(hold_k4(f"{code} B={B}", s64, p64, bpanel64))
+    gp = bpanel.copy()
+    gp[:, 120] = np.nan     # the window's first step: transition-only, no target
+    gp[5, 330] = np.nan     # partially NaN: after the window's end, then observed
+    gp64 = torch.as_tensor(gp, device=dev, dtype=f64)
+    for code in ("1RWSD-NNS", "1SD-NNS-Anchored", "3SRWSD-NNS-Anchored", "SRWSD-NS"):
+        s64, _ = yfm.create_model(code, MATURITIES, float_type="float64")
+        p = ssd_draws(s64, ssd_nns_params(s64), 512, seed=5)
+        p[3] = np.nan                                   # invalid draw → −inf
+        p64 = torch.as_tensor(p, device=dev)
+        k4_errs.append(hold_k4(f"{code} B=512 NaN column, window [120, 300)", s64, p64,
+                               gp64, 120, 300))
+        check(bool(fused_ssd.batched_loss(s64, p64, gp64, 120, 300)[3] == -math.inf),
+              f"{code}: the invalid draw must give −inf")
+        hold_k4(f"{code} B=512 window [130, 340) with the partial NaN column", s64, p64,
+                gp64, 130, 340, expect_all_inf=True)
+
+    # ---- 10. K4 timing ----------------------------------------------------------------
+    print("[10] K4 timing (CUDA events), float32")
+    k4_shapes = {}
+    for code, s64 in ssd_specs.items():
+        s32 = dataclasses.replace(s64, dtype_name="float32")
+        base = ssd_nns_params(s64)
+        per_draw = ssd_flops(s32, bpanel32)
+        for B in (1, 23, 257, 16384):
+            p32 = torch.as_tensor(ssd_draws(s64, base, B, seed=B), device=dev, dtype=f32)
+            inputs = fused_ssd.kernel_inputs(s32, p32, bpanel32, 0, T_MONTHS)
+            ms = cuda_ms(lambda: fused_ssd.launch(inputs), reps=20 if B < 16384 else 5)
+            bytes_ = nbytes(*inputs.buffers, inputs.out)
+            bound_ms, bound_by = bound(bytes_, per_draw * B)
+            row = {"ms": ms, "bytes": bytes_, "flops": per_draw * B, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "evals_per_s": B / (ms * 1e-3), "plain_ms": None}
+            if B == 257:
+                row["plain_ms"] = cuda_ms(lambda: fused_ssd.batched_loss_reference(
+                    s32, p32, bpanel32), reps=1, warmup=0)
+            k4_shapes[f"{code} {B}"] = row
+            plain_txt = "" if row["plain_ms"] is None else f", plain {row['plain_ms']:.1f} ms"
+            print(f"  {code} B={B}: kernel {ms:.4f} ms ({B / (ms * 1e-3):.0f} evals/s), "
+                  f"bound {bound_ms:.6f} ms ({bound_by}; {per_draw} flop/draw){plain_txt}")
+    report["k4_shapes"] = k4_shapes
+    report["k4_determined"] = k4_counts
+
+    # ---- 11. estimate_steps on config 6 ------------------------------------------------
+    print("[11] estimate_steps: 1SSD-NNS, N=20, T=360, 3 starts, 10 group iterations")
+    cfg, _ = yfm.create_model("1SSD-NNS", MATURITIES)
+    cfg64 = ssd_specs["1SSD-NNS"]
+    starts6 = jitter_starts(ssd_nns_params(cfg), 3, scale=0.02).T  # (P, 3)
+    groups6 = yfm.get_param_groups(cfg)
+    plain_counters = (fused_ssd.batched_loss_reference, fused_kf.batched_loglik_reference,
+                      G.forward_reference, G.adjoint_reference)
+    with timed_estimate_steps(optimize, fused_ssd) as phases:
+        fused_ssd.batched_loss.launches = 0
+        for fn in plain_counters:
+            fn.calls = 0
+        t0 = time.perf_counter()
+        init6, ll6, best6, conv6 = yfm.estimate_steps(cfg, bpanel, starts6, groups6,
+                                                      max_group_iters=10)
+        torch.cuda.synchronize()
+        wall6 = time.perf_counter() - t0
+        k4_launches = fused_ssd.batched_loss.launches
+        plain_calls = [fn.calls for fn in plain_counters]
+    by_batch, k4_dev_s = {}, {}
+    for B, phase, e0, e1 in phases["k4_events"]:
+        k4_dev_s[phase] = k4_dev_s.get(phase, 0.0) + e0.elapsed_time(e1) / 1e3
+        by_batch[B] = by_batch.get(B, 0) + 1
+    k4_total_s = sum(k4_dev_s.values())
+    print(f"  main path: K4 launches {k4_launches} (by batch size {by_batch}), "
+          f"plain-version calls {plain_calls}")
+    check(k4_launches >= 1, "estimate_steps never launched K4")
+    check(plain_calls == [0, 0, 0, 0], f"plain versions ran on the card: {plain_calls}")
+    check(math.isfinite(ll6), f"estimate_steps: non-finite ll {ll6}")
+    # the grid: the winner against the plain float64 version's on the card
+    cands = ssd_draws(cfg64, starts6[:, 0], 257, seed=0)
+    check(cands.shape[0] == 257, "the grid has 257 candidates")
+    grid64 = fused_ssd.batched_loss_reference(cfg64, torch.as_tensor(cands, device=dev),
+                                              bpanel64).cpu().numpy()
+    grid32 = fused_ssd.batched_loss(cfg, torch.as_tensor(cands, device=dev, dtype=f32),
+                                    bpanel32).double().cpu().numpy()
+    won = int(np.argmax(np.where(np.isfinite(grid32), grid32, -np.inf)))
+    won64 = int(np.argmax(np.where(np.isfinite(grid64), grid64, -np.inf)))
+    check(np.array_equal(phases["grid_winner"][:, 0], cands[won]),
+          "estimate_steps' grid winner is not the kernel's argmax")
+    check(won == won64 or abs(grid64[won] - grid64[won64]) < 2e-2 * abs(grid64[won64]),
+          f"grid winner {won} vs plain f64 {won64}: {grid64[won]} vs {grid64[won64]}")
+    check(ll6 >= grid32[won] - 1e-6 * abs(grid32[won]),
+          f"estimate_steps: ll {ll6} below the grid winner's {grid32[won]}")
+    # the kernel-reported optimum against the plain scan on the card
+    ll_scan = float(tapi.get_loss(cfg, torch.as_tensor(best6, device=dev), bpanel32))
+    check(abs(ll_scan - ll6) <= 2e-2 * abs(ll_scan),
+          f"kernel optimum {ll6} vs plain scan {ll_scan}: beyond rtol 2e-2")
+    bpanel_ext = np.concatenate([bpanel, np.full((N_MATURITIES, 12), np.nan)], axis=1)
+    fc_card = yfm.predict(cfg64, best6, bpanel_ext)
+    fc_cpu = yfm.predict(cfg64, best6, bpanel_ext, device="cpu")
+    for key, val in fc_card.items():
+        check(bool(torch.isfinite(val).all()), f"predict {key}: non-finite")
+        close(val, fc_cpu[key], 1e-6, 1e-9, f"config 6 predict {key} card vs CPU")
+    check(fc_card["preds"].shape == (N_MATURITIES, T_MONTHS + 12), "config 6 preds shape")
+    # the Nelder–Mead groups' host share: their wall less K4's device time in them
+    nm_host_s = phases["neldermead_s"] - k4_dev_s.get("neldermead_s", 0.0)
+    print(f"  ll {ll6:.8f} (grid winner {grid32[won]:.8f}, plain scan {ll_scan:.8f}), "
+          f"{conv6}, wall {wall6:.2f} s: grid {phases['grid_s']:.2f} s, Nelder–Mead "
+          f"{phases['neldermead_s']:.2f} s (K4 on the card {k4_dev_s.get('neldermead_s', 0):.2f}"
+          f" s, host {nm_host_s:.2f} s = {100 * nm_host_s / phases['neldermead_s']:.1f}%), "
+          f"closed form {phases['closed_s']:.2f} s, trust-but-verify "
+          f"{phases['verify_s']:.2f} s; K4 on the card {k4_total_s:.2f} s of the "
+          f"{wall6:.2f} s wall ({100 * k4_total_s / wall6:.1f}%)")
+    report["estimate_steps"] = {
+        "ll": ll6, "grid_winner_ll": float(grid32[won]), "plain_scan_ll": ll_scan,
+        "group_iterations": conv6.iterations, "converged": bool(conv6), "wall_s": wall6,
+        "k4_launches": k4_launches, "k4_launches_by_batch": by_batch,
+        "k4_device_s": k4_dev_s, "grid_s": phases["grid_s"],
+        "neldermead_s": phases["neldermead_s"], "neldermead_host_s": nm_host_s,
+        "closed_form_s": phases["closed_s"], "verify_s": phases["verify_s"]}
+
     head = shapes["1024"]
     kernels = [{
         "name": "K1 fused_kf", "route": "cuda",
@@ -1182,6 +1554,15 @@ def main(json_path=None) -> int:
                 for key in ("max_one_minus_cos", "max_norm_ratio_err")}
             entry["f64_leaf_error_over_scale"] = max(grad_errs[name + "_leaves"])
         kernels.append(entry)
+    k4 = k4_shapes["1SSD-NNS 257"]
+    kernels.append({
+        "name": "K4 fused_ssd", "route": "cuda",
+        "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_ssd.cu",
+        "replaces": "yieldfactormodels_jl_tpu/ops/pallas_ssd.py:214",
+        "launches": k4_launches, "max_abs_err": max(k4_errs),
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
+        "shapes": k4_shapes})
     report["kernels"] = kernels
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)

@@ -281,3 +281,88 @@ def test_estimate_windows_on_the_card_matches_the_cpu(card, code):
                                         device="cpu")
     assert xs_card.shape == xs_cpu.shape == (2, 3, spec.n_params)
     np.testing.assert_allclose(ll_card, ll_cpu, rtol=1e-3)
+
+
+def _ssd_draws(spec, B, rng):
+    """(B, P) constrained score-driven draws around a stable point: small
+    step sizes, persistence 0.97, Φ = diag(0.95, 0.9, 0.85)."""
+    p = np.zeros((B, spec.n_params))
+    neural = spec.family == "msed_neural"
+    p[:, slice(*spec.layout["A"])] = (2e-4 if neural else 1e-3) * np.exp(
+        0.2 * rng.standard_normal((B, 1)))
+    if "B" in spec.layout:
+        p[:, slice(*spec.layout["B"])] = 0.97
+    lo, hi = spec.layout["omega"]
+    p[:, lo:hi] = (rng.standard_normal((B, hi - lo)) / 10 if neural
+                   else np.log(0.5) + 0.1 * rng.standard_normal((B, 1)))
+    p[:, slice(*spec.layout["delta"])] = [0.3, -0.1, 0.05]
+    p[:, slice(*spec.layout["phi"])] = np.diag([0.95, 0.9, 0.85]).T.reshape(-1)
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["1SSD-NNS", "1RWSD-NNS", "SRWSD-NS"])
+def test_fused_ssd_matches_plain_version(card, code):
+    """K4 against its plain version on the same inputs: the float64 kernel
+    at rtol 1e-9 (the same arithmetic, sums over maturities in another
+    order), the float32 kernel against the plain float64 version at rtol
+    2e-2 (bench.py's bar for the float32 kernel); an interior NaN column
+    inside the window and an invalid draw give −inf.  The EWMA step of
+    1SSD-NNS divides each score component by its own running scale, which
+    hides a score that is off by a constant factor, so a plain-step neural
+    code (1RWSD-NNS) is held too."""
+    from tests import oracle
+    from yieldfactormodels_jl_tpu_torch.ops import fused_ssd
+
+    rng = np.random.default_rng(0)
+    s64, _ = P.create_model(code, MATS, float_type="float64")
+    s32, _ = P.create_model(code, MATS)
+    B, T = 64, 60
+    p = _ssd_draws(s64, B, rng)
+    p[7] = np.nan
+    data = oracle.simulate_dns_panel(rng, np.asarray(MATS), T=T)
+    data[:, 40] = np.nan
+    p, data = torch.as_tensor(p, device=card), torch.as_tensor(data, device=card)
+    for start, end in ((0, 35), (2, T)):
+        launches = fused_ssd.batched_loss.launches
+        got64 = P.batched_loss(s64, p, data, start, end)
+        got32 = P.batched_loss(s32, p, data, start, end)
+        torch.cuda.synchronize()
+        assert fused_ssd.batched_loss.launches == launches + 2
+        ref = fused_ssd.batched_loss_reference(s64, p, data, start, end).cpu().numpy()
+        assert got32.dtype == torch.float32 and ref[7] == -np.inf
+        np.testing.assert_array_equal(np.isfinite(got64.cpu().numpy()), np.isfinite(ref))
+        np.testing.assert_array_equal(np.isfinite(got32.cpu().numpy()), np.isfinite(ref))
+        fin = np.isfinite(ref)
+        assert fin.sum() == (B - 1 if end == 35 else 0)
+        np.testing.assert_allclose(got64.cpu().numpy()[fin], ref[fin], rtol=1e-9)
+        np.testing.assert_allclose(got32.double().cpu().numpy()[fin], ref[fin], rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_estimate_steps_on_the_card_matches_the_cpu(card):
+    """``estimate_steps`` (grid, Nelder–Mead on K4, closed-form (δ, Φ)) on
+    the card against the same call on the CPU (K4's plain version), float64
+    both, on the CPU suite's small case: ll within rtol 1e-6."""
+    from tests import oracle
+    from yieldfactormodels_jl_tpu_torch.ops import fused_ssd
+
+    mats = tuple(np.array([3, 6, 9, 12, 15, 18, 21, 24, 30, 36, 48, 60, 72, 84, 96,
+                           108, 120, 180, 240, 360]) / 12.0)
+    spec, _ = P.create_model("1SSD-NNS", mats, float_type="float64")
+    rng = np.random.default_rng(7)
+    p = _ssd_draws(spec, 1, rng)[0]
+    data = oracle.simulate_dns_panel(rng, np.asarray(mats), T=40)
+    groups = P.get_param_groups(spec)
+    budgets = {"1": ("neldermead", dict(max_iters=25)),
+               "2": ("lbfgs", dict(max_iters=8, g_tol=1e-6, f_abstol=1e-6))}
+    launches, calls = fused_ssd.batched_loss.launches, fused_ssd.batched_loss_reference.calls
+    init_c, ll_card, best_card, _ = P.estimate_steps(spec, data, p[:, None], groups,
+                                                     max_group_iters=1, optimizers=budgets)
+    assert fused_ssd.batched_loss.launches > launches
+    assert fused_ssd.batched_loss_reference.calls == calls
+    init_h, ll_cpu, best_cpu, _ = P.estimate_steps(spec, data, p[:, None], groups,
+                                                   max_group_iters=1, optimizers=budgets,
+                                                   device="cpu")
+    np.testing.assert_array_equal(init_c, init_h)
+    np.testing.assert_allclose(ll_card, ll_cpu, rtol=1e-6)

@@ -304,9 +304,9 @@ def test_engine_and_family_errors(rng):
     for engine in ("sqrt", "slr"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             P.get_loss(ts, p, data, engine=engine, device=CPU)
-    msed, _ = P.create_model("SD-NS", MATS, float_type="float64")
+    static, _ = P.create_model("NS", MATS, float_type="float64")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.get_loss(msed, np.zeros(msed.n_params), data, device=CPU)
+        P.get_loss(static, np.zeros(static.n_params), data, device=CPU)
 
 
 def test_numpy_input_without_device_needs_cuda(rng):

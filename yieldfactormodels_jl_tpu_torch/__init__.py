@@ -7,19 +7,25 @@ registry, parameter transforms and unpacking, DNS/AFNS loadings, the Kalman
 log-likelihood (univariate and joint engines), ``predict``, the fused
 batched log-likelihood kernel, its differentiable twin (forward and adjoint
 kernels, for DNS/AFNS and the TVλ EKF), the fused multi-start MLE
-``estimate`` and its rolling-window form ``estimate_windows``.
+``estimate`` and its rolling-window form ``estimate_windows``; for the
+score-driven families the scan filter, ``get_loss_array``, the fused value
+kernel and the block-coordinate ``estimate_steps`` with its
+``try_initializations`` grid.
 """
 
 from .carry import params_from_jax
-from .estimation.optimize import (Convergence, estimate, estimate_windows,
-                                  last_multistart_report)
-from .models.api import get_loss, predict
+from .estimation.optimize import (Convergence, estimate, estimate_steps,
+                                  estimate_windows, last_multistart_report,
+                                  try_initializations)
+from .models.api import get_loss, get_loss_array, get_param_groups, predict
 from .models.params import transform_params, untransform_params
 from .models.registry import create_model
 from .ops.fused_kf import batched_loglik
 from .ops.fused_kf_grad import batched_loglik_diff
+from .ops.fused_ssd import batched_loss
 
 __all__ = ["create_model", "transform_params", "untransform_params",
-           "get_loss", "predict", "batched_loglik", "batched_loglik_diff",
-           "estimate", "estimate_windows", "last_multistart_report", "Convergence",
-           "params_from_jax"]
+           "get_loss", "get_loss_array", "get_param_groups", "predict",
+           "batched_loglik", "batched_loglik_diff", "batched_loss",
+           "estimate", "estimate_windows", "estimate_steps", "try_initializations",
+           "last_multistart_report", "Convergence", "params_from_jax"]

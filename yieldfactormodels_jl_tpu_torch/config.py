@@ -1,8 +1,9 @@
 """Engine names and the device rule of the PyTorch port.
 
-Counterpart of the Kalman part of ``yieldfactormodels_jl_tpu/config.py``.  The
-engine names are the JAX package's, so a caller can name any of them; the
-port runs "univariate" (the default) and "joint" so far, and
+Counterpart of the engine registries of ``yieldfactormodels_jl_tpu/config.py``.
+The engine names are the JAX package's, so a caller can name any of them;
+the port runs "univariate" (the default) and "joint" for the Kalman
+families and "scan" for the score-driven ones so far, and
 ``models.api.get_loss`` says which ROADMAP item brings the others.
 """
 
@@ -20,17 +21,28 @@ import torch
 KALMAN_ENGINES = ("univariate", "sqrt", "joint", "assoc", "slr")
 _KALMAN_ENGINE = "univariate"
 
+#: loss engines of the score-driven (MSED) families:
+#:   "scan"        the sequential recursion (the default)
+#:   "score_tree"  the parallel-in-time engine, where the spec's state is
+#:                 the plain gradient recursion (``spec.supports_score_tree``)
+MSED_ENGINES = ("scan", "score_tree")
+
 
 def engines_for(spec) -> tuple:
-    """The loss-engine names valid for a Kalman family: all of them where
-    the measurement is constant, all but "assoc" for TVλ."""
-    if not spec.is_kalman:
-        raise NotImplementedError(
-            "engines_for covers the Kalman families; the score-driven and "
-            "static families are not ported yet (ROADMAP Queue 1 item 6)")
-    if spec.has_constant_measurement:
-        return KALMAN_ENGINES
-    return tuple(e for e in KALMAN_ENGINES if e != "assoc")
+    """The loss-engine names valid for one family: for a Kalman family all
+    of ``KALMAN_ENGINES`` where the measurement is constant, all but "assoc"
+    for TVλ; for a score-driven family ``MSED_ENGINES``, without
+    "score_tree" for the EWMA-scaled specs; none for the static families,
+    which have no recursion to choose an engine for."""
+    if spec.is_kalman:
+        if spec.has_constant_measurement:
+            return KALMAN_ENGINES
+        return tuple(e for e in KALMAN_ENGINES if e != "assoc")
+    if spec.is_msed:
+        if spec.supports_score_tree:
+            return MSED_ENGINES
+        return tuple(e for e in MSED_ENGINES if e != "score_tree")
+    return ()
 
 
 def kalman_engine() -> str:

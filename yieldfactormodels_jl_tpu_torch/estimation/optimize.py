@@ -1,20 +1,29 @@
-"""Multi-start MLE on the fused kernels: ``estimate`` and the rolling-window
-``estimate_windows`` with the fused objective.
+"""Estimation on the fused kernels: the multi-start MLE ``estimate``, its
+rolling-window form ``estimate_windows``, and the block-coordinate
+``estimate_steps`` of the score-driven families.
 
-Counterpart of the fused path of ``yieldfactormodels_jl_tpu/estimation/
-optimize.py``: one batched L-BFGS loop over the (S, P) start matrix
-(``batched_lbfgs``) whose Armijo probes run the value kernel (K1,
-``ops/fused_kf``) and whose accepted points take one value-and-gradient
-through the differentiable kernels (K2f/K2b for DNS/AFNS, K3f/K3b for TVλ,
-``ops/fused_kf_grad``), then a trust-but-verify re-evaluation of the winner
-by the plain univariate engine.  ``estimate_windows`` runs the same loop
-over a (windows × starts) batch whose rows carry their own windows.
+Counterpart of the fused paths of ``yieldfactormodels_jl_tpu/estimation/
+optimize.py``.  ``estimate`` runs one batched L-BFGS loop over the (S, P)
+start matrix (``batched_lbfgs``) whose Armijo probes run the value kernel
+(K1, ``ops/fused_kf``) and whose accepted points take one
+value-and-gradient through the differentiable kernels (K2f/K2b for DNS/AFNS,
+K3f/K3b for TVλ, ``ops/fused_kf_grad``), then a trust-but-verify
+re-evaluation of the winner by the plain univariate engine.
+``estimate_windows`` runs the same loop over a (windows × starts) batch
+whose rows carry their own windows.  ``estimate_steps`` evaluates the A×B
+initialization grid in one call of the score-driven value kernel (K4,
+``ops/fused_ssd``), then alternates parameter groups: Nelder–Mead blocks
+whose every candidate batch is one K4 call, and the closed-form (δ, Φ)
+solve on a fully observed window; the winner is re-evaluated by the plain
+score-driven scan.  On the CPU the kernels' plain versions run.
 
 What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
 item: the per-start ``"vmap"`` optimizer and ``"time_sharded"`` objective,
 the Newton polish (``second_order`` / ``YFM_NEWTON``), the amortized warm
-start (``warm_start`` / ``YFM_AMORT``) and the escalation ladder
-(``YFM_ESCALATE``).
+start (``warm_start`` / ``YFM_AMORT``), the escalation ladder
+(``YFM_ESCALATE``), checkpointed ``estimate_steps``, and the gradient-based
+groups of ``estimate_steps`` (L-BFGS where the closed form does not apply,
+Adam), which need second-order autograd through the inner score.
 """
 
 from __future__ import annotations
@@ -31,8 +40,11 @@ from .. import config
 from ..models import api
 from ..models.params import transform_params, untransform_params
 from ..models.specs import ModelSpec
-from ..ops import fused_kf, fused_kf_grad
+from ..models import score_driven
+from ..models.params import get_new_initial_params
+from ..ops import fused_kf, fused_kf_grad, fused_ssd
 from .batched_lbfgs import batched_lbfgs
+from .neldermead import nelder_mead_batched
 
 #: the non-finite-loss penalty, and the threshold at/above which an objective
 #: value sits on its plateau: strictly below 1e12 because float32 rounds 1e12
@@ -53,6 +65,13 @@ _NOT_PORTED = {
                   "amortized warm start)",
     "ladder": "ROADMAP.md Queue 1 item 9 (robustness/ladder.py, the "
               "escalation ladder)",
+    "checkpoint": "ROADMAP.md Queue 1 item 11 (orchestration/checkpoint.py)",
+    "second_order_ad": "ROADMAP.md Queue 1 item 6 (remaining: the "
+                       "gradient-based MSED groups, which need second-order "
+                       "autograd through the inner score)",
+    "kalman_steps": "ROADMAP.md Queue 1 item 5 (the backtest's "
+                    "estimate_steps for the Kalman families)",
+    "static": "ROADMAP.md Queue 1 item 6 (the static families)",
 }
 
 
@@ -324,3 +343,289 @@ def estimate_windows(spec: ModelSpec, data, raw_starts, window_starts, window_en
     _trust_but_verify("estimate_windows() window 0", spec, xs[0, j0], lls[0, j0],
                       data, int(ws[0]), int(we[0]))
     return xs, lls
+
+
+# ---------------------------------------------------------------------------
+# estimate_steps: block-coordinate descent of the score-driven families
+# ---------------------------------------------------------------------------
+
+#: group → (optimizer, options), the JAX package's default table
+DEFAULT_OPTIMIZERS: Dict[str, tuple] = {
+    "1": ("neldermead", dict(max_iters=500)),
+    "2": ("lbfgs", dict(max_iters=250, g_tol=1e-6, f_abstol=1e-6)),
+    "3": ("adam", dict(max_iters=5000, lr=1e-3)),
+    "4": ("neldermead", dict(max_iters=500)),
+    "5": ("adam", dict(max_iters=10000, lr=1e-3)),
+}
+
+
+def _optimizer_for_group(g: str, table) -> tuple:
+    return table.get(g, table["1"])
+
+
+def _finite_objective(spec: ModelSpec, data, raw_params, start, end,
+                      penalty=PENALTY):
+    """The plain engine's objective −loss at raw parameters, non-finite
+    values clamped to ``penalty``."""
+    v = compute_loss(spec, data, raw_params, start, end)
+    return torch.where(torch.isfinite(v), v, torch.full_like(v, penalty))
+
+
+def try_initializations(spec: ModelSpec, best_params, data, max_tries: int = 0,
+                        start=0, end=None, device=None):
+    """A (P, S) matrix of constrained starting points.  For a score-driven
+    spec: ``best_params`` and the A×B guess grid (256 candidates for
+    1SSD-NNS) in ONE call of the score-driven value kernel, and the best
+    candidate as the single start; for a Kalman spec ``best_params``
+    itself.  Numpy ``data`` goes to ``device`` (``None`` means CUDA)."""
+    best_params = np.asarray(best_params, dtype=np.float64).reshape(-1)
+    if spec.is_kalman:
+        return best_params[:, None]
+    if not spec.is_msed:
+        raise _not_ported(f"try_initializations for family {spec.family!r}",
+                          "static")
+    trials = []
+    for t in range(1, 1001):
+        cand = get_new_initial_params(spec, best_params, t)
+        if cand is None:
+            break
+        trials.append(cand)
+    cands = np.stack([best_params] + trials, axis=0)  # (S, P)
+    data = config.as_tensor(data, device, spec.dtype)
+    if end is None:
+        end = data.shape[1]
+    losses = fused_ssd.batched_loss(
+        spec, torch.as_tensor(cands, dtype=spec.dtype, device=data.device),
+        data, start, end).double().cpu().numpy()
+    best = int(np.nanargmax(np.where(np.isfinite(losses), losses, -np.inf)))
+    return cands[best][:, None]
+
+
+def _neldermead_group(spec: ModelSpec, X, inds, opts, data, start, end):
+    """All starts' Nelder–Mead over the group ``inds`` in lockstep; every
+    candidate batch is one K4 call (its plain version on the CPU), the
+    objective −loss with non-finite values clamped to the penalty.
+    Returns (X', f (S,))."""
+    S, Pn = X.shape
+    idx = torch.as_tensor(inds, device=X.device)
+
+    def batch_fun(Xs):  # (S, K, k) -> (S, K)
+        K = Xs.shape[1]
+        F = X[:, None, :].expand(S, K, Pn).clone()
+        F[:, :, idx] = Xs
+        v = -fused_ssd.batched_loss(spec, transform_params(spec, F.reshape(S * K, Pn)),
+                                    data, start, end)
+        return torch.where(torch.isfinite(v), v, torch.full_like(v, PENALTY)).reshape(S, K)
+
+    x, f, _ = nelder_mead_batched(batch_fun, X[:, idx], max_iters=opts["max_iters"],
+                                  f_tol=opts.get("f_tol", 1e-8))
+    out = X.clone()
+    out[:, idx] = x
+    return out, f
+
+
+def _msed_closed_applicable(spec: ModelSpec, inds, data, start, end) -> bool:
+    """Whether the closed-form (δ, Φ) solve serves a group: a score-driven
+    spec with M = 3, the group exactly the contiguous (δ, Φ) tail, enough
+    rows for the 12 unknowns, and a fully observed window (with missing
+    columns β carries through Φ and the sub-objective is not quadratic).
+    ``YFM_MSED_CLOSED=0`` turns it off."""
+    if not spec.is_msed or spec.M != 3:
+        return False
+    if os.environ.get("YFM_MSED_CLOSED", "1") == "0":
+        return False
+    lo_d, _ = spec.layout["delta"]
+    _, hi_p = spec.layout["phi"]
+    if tuple(inds) != tuple(range(lo_d, hi_p)):
+        return False
+    N, T = data.shape
+    if (T - 1) * N < spec.M + spec.M * spec.M:
+        return False
+    return bool(torch.isfinite(data[:, int(start):int(end)]).all())
+
+
+def _solve_or_nan(A, b):
+    """torch.linalg.solve with NaN where a matrix is singular (the JAX
+    package's solve returns non-finite values there instead of raising)."""
+    x, info = torch.linalg.solve_ex(A, b)
+    return torch.where((info == 0).reshape(info.shape + (1,) * (x.dim() - info.dim())),
+                       x, torch.full_like(x, float("nan")))
+
+
+def _msed_closed_group(spec: ModelSpec, X, data, start, end):
+    """The exact optimum of the (δ, Φ) block for each start.
+
+    On a fully observed window the γ path and the post-update β̄ do not
+    depend on (δ, Φ), so the loss is −Σ‖y_{t+1} − Z_{t+1}(μ + Φβ̄_t)‖², a
+    12-unknown linear least squares in (μ, vec Φ): one trajectory pass of
+    the plain scan, a QR solve (ridge normal equations where R is
+    singular), δ = (I − Φ)⁻¹μ with Φ's diagonal clipped into (−1, 1).  A
+    start takes the candidate only where it improves the plain objective.
+    Returns (X', f (S,))."""
+    S = X.shape[0]
+    M = spec.M
+    cons = transform_params(spec, X)
+    N, T = data.shape
+    t_idx = torch.arange(T - 1, device=X.device)
+    keep = ((t_idx >= start) & (t_idx <= end - 2))[:, None, None]
+    _, _, outs = score_driven.scan_filter(spec, cons, data, start, end)
+    Z2, Z3 = outs["Z2"][:, :-1], outs["Z3"][:, :-1]        # (S, T−1, N) at γ_{t+1}
+    Zx = torch.stack([torch.ones_like(Z2), Z2, Z3], -1)    # (S, T−1, N, M)
+    bo = outs["beta_obs"][:, :-1]                          # (S, T−1, M)
+    # regressors of vec_rowmajor(Φ): column (m, k) is Z[:, :, m]·β̄[k]
+    Dphi = (Zx[..., :, None] * bo[:, :, None, None, :]).reshape(S, T - 1, N, M * M)
+    D = torch.cat([Zx, Dphi], -1)                          # (S, T−1, N, M+M²)
+    # mask by where, never by multiplication: a NaN outside the window
+    # must not poison the sums
+    Dm = torch.where(keep, D, torch.zeros_like(D)).reshape(S, -1, M + M * M)
+    y1 = data[:, 1:].T
+    ym = torch.where(keep[:, :, 0], y1, torch.zeros_like(y1)).reshape(-1)
+    ym = ym.expand(S, -1)
+    Q, R = torch.linalg.qr(Dm)
+    qty = (Q * ym[..., None]).sum(1)
+    theta = torch.linalg.solve_triangular(R, qty[..., None], upper=True)[..., 0]
+    G = Dm.transpose(1, 2) @ Dm
+    lam = 1e-8 * torch.diagonal(G, dim1=1, dim2=2).sum(1) / G.shape[1]
+    eye = torch.eye(G.shape[1], dtype=G.dtype, device=G.device)
+    theta_r = _solve_or_nan(G + lam[:, None, None] * eye,
+                            (Dm.transpose(1, 2) @ ym[..., None])[..., 0])
+    ok = torch.isfinite(theta).all(1, keepdim=True)
+    theta = torch.where(ok, theta, theta_r)
+    mu = theta[:, :M]
+    Phi = theta[:, M:].reshape(S, M, M)
+    diag = torch.diagonal(Phi, dim1=1, dim2=2)
+    Phi = Phi + torch.diag_embed(torch.clamp(diag, -0.999999, 0.999999) - diag)
+    delta = _solve_or_nan(torch.eye(M, dtype=Phi.dtype, device=Phi.device) - Phi, mu)
+    lo_d, hi_d = spec.layout["delta"]
+    lo_p, hi_p = spec.layout["phi"]
+    new_cons = cons.clone()
+    new_cons[:, lo_d:hi_d] = delta
+    new_cons[:, lo_p:hi_p] = Phi.transpose(1, 2).reshape(S, M * M)  # column-major vec
+    new_raw = untransform_params(spec, new_cons)
+    f_both = _finite_objective(spec, data, torch.cat([new_raw, X]), start, end)
+    f_new, f_old = f_both[:S], f_both[S:]
+    take = (f_new < f_old) & torch.isfinite(new_raw).all(1)
+    return torch.where(take[:, None], new_raw, X), torch.minimum(f_new, f_old)
+
+
+def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_iters: int = 10,
+                   tol: float = 1e-8, optimizers=None, start=0, end=None,
+                   max_tries: int = 0, printing: bool = False, checkpoint=None,
+                   second_order=None, warm_start=None, device=None):
+    """Block-coordinate estimation over parameter groups, for the
+    score-driven families.
+
+    The control flow of the JAX package: the initialization grid replaces
+    the starts by its best candidate, which is untransformed, sanitized and
+    rescued (×0.95, up to 10 times) until its loss is finite; then each group
+    iteration optimizes every group embedded in the full vector — the
+    closed-form (δ, Φ) solve where it applies, Nelder–Mead with every
+    candidate batch one K4 call otherwise — all starts in lockstep, until the
+    loss moves by less than ``tol``.  An objective that is non-finite
+    everywhere on the first group optimization raises; later, the start's
+    group loop stops.  The winner is re-evaluated by the plain scan
+    (trust-but-verify; a disagreement raises).  ``all_params`` (P, S)
+    constrained; numpy ``data`` goes to ``device`` (``None`` means CUDA).
+
+    Returns (init_params, ll, best_params, Convergence(converged,
+    iterations)) for the winning start, as numpy arrays."""
+    if spec.is_kalman:
+        raise _not_ported("estimate_steps for the Kalman families", "kalman_steps")
+    if not spec.is_msed:
+        raise _not_ported(f"estimate_steps for family {spec.family!r}", "static")
+    if checkpoint is not None:
+        raise _not_ported("checkpointed estimate_steps", "checkpoint")
+    _check_unported_knobs(second_order, warm_start)
+    data = config.as_tensor(data, device, spec.dtype)
+    dev = data.device
+    T = data.shape[1]
+    if end is None:
+        end = T
+    table = optimizers if optimizers is not None else DEFAULT_OPTIMIZERS
+    param_groups = list(param_groups)
+    group_ids = sorted(set(param_groups))
+    inds_by_group = {g: tuple(i for i, gg in enumerate(param_groups) if gg == g)
+                     for g in group_ids}
+    closed_ok = {g: _msed_closed_applicable(spec, inds_by_group[g], data, start, end)
+                 for g in group_ids}
+    for g in group_ids:
+        kind, _ = _optimizer_for_group(g, table)
+        if g != "-1" and inds_by_group[g] and not closed_ok[g] and kind != "neldermead":
+            raise _not_ported(f"the {kind!r} optimizer of group {g!r}", "second_order_ad")
+
+    with torch.no_grad():
+        all_params = np.asarray(all_params, dtype=np.float64)
+        if all_params.ndim == 1:
+            all_params = all_params[:, None]
+        all_params = try_initializations(spec, all_params[:, 0], data, max_tries,
+                                         start, end)
+        raw = np.stack([_sanitize(untransform_params(spec, torch.as_tensor(c)).numpy())
+                        for c in all_params.T], axis=1)  # (P, S)
+
+        def loss_at(p):
+            cons = transform_params(spec, torch.as_tensor(p, dtype=spec.dtype, device=dev))
+            return float(api.get_loss(spec, cons, data, start, end))
+
+        # validity rescue of the first start
+        ll0 = loss_at(raw[:, 0])
+        for _ in range(10):
+            if np.isfinite(ll0):
+                break
+            raw[:, 0] *= 0.95
+            ll0 = loss_at(raw[:, 0])
+
+        X = torch.as_tensor(raw.T, dtype=spec.dtype, device=dev)  # (S, P)
+        S = X.shape[0]
+        prev_ll = np.full(S, -np.inf)
+        done = np.zeros(S, dtype=bool)       # ΔLL met or aborted
+        converged = np.zeros(S, dtype=bool)  # ΔLL met
+        iters_done = np.zeros(S, dtype=np.int64)
+        first_group_of_run = True
+        for it in range(max_group_iters):
+            if done.all():
+                break
+            aborted = np.zeros(S, dtype=bool)
+            for g in group_ids:
+                inds = inds_by_group[g]
+                if g == "-1" or not inds:  # placeholder group: skipped
+                    continue
+                if closed_ok[g]:
+                    X_new, f_g = _msed_closed_group(spec, X, data, start, end)
+                else:
+                    X_new, f_g = _neldermead_group(spec, X, inds,
+                                                   _optimizer_for_group(g, table)[1],
+                                                   data, start, end)
+                f_g = f_g.double().cpu().numpy()
+                obj_broken = f_g >= PENALTY_THRESH
+                if first_group_of_run:
+                    first_group_of_run = False
+                    if obj_broken[0] and not np.isfinite(ll0):
+                        raise RuntimeError(
+                            f"estimate_steps: objective is non-finite at every point "
+                            f"of the first group optimization (group {g!r}) — "
+                            f"model/data are structurally incompatible")
+                frozen = torch.as_tensor(done | aborted, device=dev)
+                X = torch.where(frozen[:, None], X, X_new)
+                aborted = aborted | (obj_broken & ~done)
+            active = ~done
+            iters_done[active] = it + 1
+            lls = fused_ssd.batched_loss(spec, transform_params(spec, X), data, start,
+                                         end).double().cpu().numpy()
+            hit_tol = np.abs(lls - prev_ll) < tol
+            converged |= active & hit_tol & ~aborted
+            done = done | (active & (hit_tol | aborted))
+            prev_ll = np.where(active & ~aborted, lls, prev_ll)
+        if printing:
+            for j in range(S):
+                print(f"✓ LL = {prev_ll[j]} from start {j + 1}")
+
+        best_j = int(np.argmax(np.where(np.isfinite(prev_ll), prev_ll, -np.inf)))
+        X_np = X.double().cpu().numpy()
+        best = _trust_but_verify("estimate_steps()", spec, X_np[best_j], prev_ll[best_j],
+                                 data, start, end)
+        init = transform_params(spec, torch.as_tensor(raw[:, best_j], dtype=spec.dtype))
+    _record_report(prev_ll, best_j, iters=iters_done, converged=converged)
+    if printing:
+        print(f"✓ Best overall LL = {prev_ll[best_j]} from start {best_j + 1}")
+    return (init.numpy(), float(prev_ll[best_j]), best.cpu().numpy(),
+            Convergence(bool(converged[best_j]), int(iters_done[best_j])))

@@ -1,10 +1,10 @@
-"""Family-dispatch façade for the Kalman families.
+"""Family-dispatch façade for the Kalman and score-driven families.
 
-Counterpart of the Kalman part of ``yieldfactormodels_jl_tpu/models/api.py``.
-``get_loss`` and ``predict`` take a spec, *constrained* parameters (one
-vector or a (..., n_params) batch) and an (N, T) panel.  Numpy input goes to
-``device`` (``None`` means CUDA; see ``config.resolve_device``); tensors stay
-where they are.
+Counterpart of ``yieldfactormodels_jl_tpu/models/api.py``.  ``get_loss``,
+``get_loss_array`` and ``predict`` take a spec, *constrained* parameters
+(one vector or a (..., n_params) batch) and an (N, T) panel.  Numpy input
+goes to ``device`` (``None`` means CUDA; see ``config.resolve_device``);
+tensors stay where they are.  The static families are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import config
-from . import kalman
+from . import kalman, score_driven
 from .specs import ModelSpec
 
 #: where each engine or family that is not ported yet comes from
@@ -20,12 +20,23 @@ _NOT_PORTED = {
     "sqrt": "ROADMAP.md Queue 1 item 7 (remaining sequential engines)",
     "assoc": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
     "slr": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
+    "score_tree": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
 }
 _FAMILIES_ITEM = "ROADMAP.md Queue 1 item 6 (score-driven and static families)"
 
 
 def _require_kalman(spec: ModelSpec):
+    """Refuse a non-Kalman spec at an entry point that covers the Kalman
+    families only so far."""
     if not spec.is_kalman:
+        raise NotImplementedError(
+            f"this entry point is not ported to PyTorch yet for family "
+            f"{spec.family!r}; see {_FAMILIES_ITEM}")
+
+
+def _require_filtered(spec: ModelSpec):
+    """Refuse the static families, which are not ported yet."""
+    if not (spec.is_kalman or spec.is_msed):
         raise NotImplementedError(
             f"family {spec.family!r} is not ported to PyTorch yet; "
             f"see {_FAMILIES_ITEM}")
@@ -38,15 +49,7 @@ def _inputs(spec: ModelSpec, params, data, device):
     return params, data
 
 
-def get_loss(spec: ModelSpec, params, data, start=0, end=None,
-             engine: str | None = None, device=None):
-    """Gaussian loglik of the Kalman families ("univariate" by default, or
-    "joint"); shape ``params.shape[:-1]``."""
-    _require_kalman(spec)
-    name = engine or config.kalman_engine()
-    if name not in config.KALMAN_ENGINES:
-        raise ValueError(
-            f"unknown kalman engine {name!r}; pick from {config.KALMAN_ENGINES}")
+def _check_engine(spec: ModelSpec, name: str):
     valid = config.engines_for(spec)
     if name not in valid:
         raise ValueError(
@@ -56,6 +59,31 @@ def get_loss(spec: ModelSpec, params, data, start=0, end=None,
         raise NotImplementedError(
             f"engine {name!r} is not ported to PyTorch yet; see "
             f"{_NOT_PORTED[name]}")
+
+
+def get_loss(spec: ModelSpec, params, data, start=0, end=None, K: int = 1,
+             engine: str | None = None, device=None):
+    """The filter loss, shape ``params.shape[:-1]``: the Gaussian loglik of
+    the Kalman families ("univariate" by default, or "joint"), the
+    one-step-ahead −MSE of the score-driven families ("scan"; ``K`` filter
+    passes)."""
+    _require_filtered(spec)
+    if spec.is_msed:
+        name = engine or "scan"
+        if name not in config.engines_for(spec):
+            _check_engine(spec, name)  # raises: not applicable
+        if name == "score_tree" and K != 1:
+            raise ValueError(
+                "engine 'score_tree' supports K=1 only; use the sequential "
+                "'scan' engine for K-replay losses")
+        _check_engine(spec, name)
+        params, data = _inputs(spec, params, data, device)
+        return score_driven.get_loss(spec, params, data, start, end, K)
+    name = engine or config.kalman_engine()
+    if name not in config.KALMAN_ENGINES:
+        raise ValueError(
+            f"unknown kalman engine {name!r}; pick from {config.KALMAN_ENGINES}")
+    _check_engine(spec, name)
     params, data = _inputs(spec, params, data, device)
     if name == "joint":
         return kalman.get_loss(spec, params, data, start, end)
@@ -64,8 +92,44 @@ def get_loss(spec: ModelSpec, params, data, start=0, end=None,
     return univariate_kf.get_loss(spec, params, data, start, end)
 
 
-def predict(spec: ModelSpec, params, data, device=None):
-    """NaN-extended one-step-ahead prediction artifacts (models/kalman.predict)."""
-    _require_kalman(spec)
+def get_loss_array(spec: ModelSpec, params, data, start=0, end=None, K: int = 1,
+                   device=None):
+    """Per-step −MSE contributions (..., T−1) of a score-driven spec."""
+    if not spec.is_msed:
+        raise NotImplementedError(
+            f"get_loss_array covers the score-driven families so far, not "
+            f"{spec.family!r}; see {_FAMILIES_ITEM}")
     params, data = _inputs(spec, params, data, device)
+    return score_driven.get_loss_array(spec, params, data, start, end, K)
+
+
+def predict(spec: ModelSpec, params, data, device=None):
+    """NaN-extended one-step-ahead prediction artifacts of the family's
+    filter (``kalman.predict``, ``score_driven.predict``)."""
+    _require_filtered(spec)
+    params, data = _inputs(spec, params, data, device)
+    if spec.is_msed:
+        return score_driven.predict(spec, params, data)
     return kalman.predict(spec, params, data)
+
+
+def get_param_groups(spec: ModelSpec, param_groups=None):
+    """A caller's grouping if its length matches the parameter count, else
+    the family default."""
+    if param_groups is not None and len(param_groups) == spec.n_params:
+        return tuple(param_groups)
+    return spec.default_param_groups()
+
+
+def get_static_model_type(spec: ModelSpec) -> str:
+    """The code of the static model a spec warm-starts from ("" for the
+    random walk)."""
+    if spec.family == "kalman_dns":
+        return "DNS"
+    if spec.family == "kalman_tvl":
+        return "1C"
+    if spec.family in ("msed_lambda", "static_lambda"):
+        return "NS"
+    if spec.family in ("msed_neural", "static_neural"):
+        return "NNS" if spec.transform_bool else "NNS-Anchored"
+    return ""

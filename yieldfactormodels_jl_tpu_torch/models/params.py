@@ -1,8 +1,10 @@
-"""Flat-parameter unpacking, sharing and transforms for the Kalman families.
+"""Flat-parameter unpacking, sharing, transforms and initialization.
 
-Counterpart of the Kalman part of ``yieldfactormodels_jl_tpu/models/params.py``.
-``unpack_kalman`` builds the structured state-space ingredients from a flat
-*constrained* parameter tensor of shape (..., n_params); nothing is mutated.
+Counterpart of the Kalman and score-driven parts of
+``yieldfactormodels_jl_tpu/models/params.py``.  ``unpack_kalman`` and
+``unpack_msed`` build the structured ingredients from a flat *constrained*
+parameter tensor of shape (..., n_params); nothing is mutated.  The
+initialization helpers work on float64 numpy vectors, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +54,16 @@ def untransform_params(spec: ModelSpec, params):
 # structured view
 # ---------------------------------------------------------------------------
 
+class MSEDParams(NamedTuple):
+    A: torch.Tensor                # (..., L) expanded step sizes
+    B: Optional[torch.Tensor]      # (..., L) expanded persistence, None if random walk
+    omega: torch.Tensor            # (..., L)
+    delta: torch.Tensor            # (..., M)
+    Phi: torch.Tensor              # (..., M, M)
+    mu: torch.Tensor               # (..., M) = (I − Φ)δ
+    nu: torch.Tensor               # (..., L) = (1 − B) ⊙ ω  (0 if random walk)
+
+
 class KalmanParams(NamedTuple):
     gamma: Optional[torch.Tensor]  # (..., n_lambdas) λ drivers (DNS/AFNS)
     obs_var: torch.Tensor          # (...,) measurement variance σ²
@@ -73,3 +85,83 @@ def unpack_kalman(spec: ModelSpec, params) -> KalmanParams:
     delta = spec.slice(params, "delta")
     Phi = spec.slice(params, "phi").reshape(params.shape[:-1] + (Ms, Ms))
     return KalmanParams(gamma, obs_var, Omega_state, delta, Phi)
+
+
+def unpack_msed(spec: ModelSpec, params) -> MSEDParams:
+    """β₀ = δ, γ₀ = ω, μ = (I − Φ)δ, ν = (1 − B) ⊙ ω; Φ filled column-major;
+    no B for random-walk dynamics."""
+    M = spec.M
+    A = expand_params(spec.slice(params, "A"), spec.duplicator)
+    B = None if spec.random_walk else expand_params(spec.slice(params, "B"),
+                                                    spec.duplicator)
+    omega = spec.slice(params, "omega")
+    delta = spec.slice(params, "delta")
+    Phi = spec.slice(params, "phi").reshape(params.shape[:-1] + (M, M))
+    Phi = Phi.transpose(-1, -2)  # column-major vec -> matrix
+    mu = delta - (Phi @ delta.unsqueeze(-1)).squeeze(-1)
+    nu = torch.zeros_like(omega) if B is None else (1.0 - B) * omega
+    return MSEDParams(A, B, omega, delta, Phi, mu, nu)
+
+
+#: where the initialization of the families that are not ported comes from
+_INIT_ITEM = "ROADMAP.md Queue 1 item 6 (the static families)"
+
+
+def get_new_initial_params(spec: ModelSpec, params, trial: int):
+    """Trial-indexed initial proposal for a score-driven spec: the ``trial``-th
+    point of the A×B guess grid (``trial`` is 1-based, the grid walk depends
+    on it), or None once the grid is exhausted.  ``params`` (P,) float64."""
+    if trial < 1:
+        raise ValueError(f"trial is 1-based; got {trial}")
+    if not spec.is_msed:
+        raise NotImplementedError(
+            f"initial proposals for family {spec.family!r} are not ported "
+            f"to PyTorch yet; see {_INIT_ITEM}")
+    params = np.asarray(params, dtype=np.float64).copy()
+    num_A = len(spec.A_guesses)
+    num_B = 0 if spec.random_walk else len(spec.B_guesses)
+    u = spec.n_unique
+    has_B = num_B > 0
+    if u == 1:
+        total = num_A * num_B if has_B else num_A
+    else:
+        total = (num_A ** 2) * (num_B ** 2) if has_B else num_A ** 2
+    if trial > total:
+        return None
+    t = trial - 1
+    if u == 1:
+        if has_B:
+            params[0] = spec.A_guesses[t // num_B]
+            params[1] = spec.B_guesses[t % num_B]
+        else:
+            params[0] = spec.A_guesses[t]
+        return params
+    half = u // 2
+    if has_B:
+        a1 = t // (num_A * num_B ** 2)
+        rem = t % (num_A * num_B ** 2)
+        a2 = rem // (num_B ** 2)
+        rem = rem % (num_B ** 2)
+        b1 = rem // num_B
+        b2 = rem % num_B
+        params[0:half] = spec.A_guesses[a1]
+        params[half:u] = spec.A_guesses[a2]
+        params[u:u + half] = spec.B_guesses[b1]
+        params[u + half:2 * u] = spec.B_guesses[b2]
+    else:
+        params[0:half] = spec.A_guesses[t // num_A]
+        params[half:u] = spec.A_guesses[t % num_A]
+    return params
+
+
+def initialize_with_static_params(spec: ModelSpec, params, static_params):
+    """Warm start of a score-driven spec from a static model's fit: the
+    [ω; δ; Φ] tail is overwritten by ``static_params``."""
+    if not spec.is_msed:
+        raise NotImplementedError(
+            f"warm starts for family {spec.family!r} are not ported to "
+            f"PyTorch yet; see {_INIT_ITEM}")
+    params = np.asarray(params, dtype=np.float64).copy()
+    sp = np.asarray(static_params, dtype=np.float64).reshape(-1)
+    params[len(params) - len(sp):] = sp
+    return params

@@ -24,8 +24,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels_build"
 
-#: kernel library name -> (source file under csrc/, {C entry point: argtypes});
-#: every pointer and the stream are c_void_p so ctypes never cuts them to 32 bits
+#: kernel library name -> (source file under csrc/, {C entry point: argtypes},
+#: extra nvcc flags); every pointer and the stream are c_void_p so ctypes never
+#: cuts them to 32 bits, and host constants are c_double
 KERNELS = {
     "fused_kf": ("fused_kf.cu", {
         "yfm_fused_kf": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14}),
@@ -34,6 +35,13 @@ KERNELS = {
         "yfm_kf_grad_bwd": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 22,
         "yfm_kf_tvl_grad_fwd": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13,
         "yfm_kf_tvl_grad_bwd": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 19}),
+    # K4 without FMA contraction: a fused multiply-add rounds once where the
+    # plain version and the JAX kernel round twice, and on a draw whose
+    # recursion overflows that turned their NaN (−inf loss) into a finite
+    # value
+    "fused_ssd": ("fused_ssd.cu", {
+        "yfm_fused_ssd": [ctypes.c_int] * 8 + [ctypes.c_double] * 4
+                         + [ctypes.c_void_p] * 5}, ("-fmad=false",)),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,13 +61,18 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    """nvcc flags of one library: the common ones and its own."""
+    return NVCC_FLAGS + (KERNELS[name][2] if len(KERNELS[name]) > 2 else ())
+
+
 def _lib_path(name: str) -> Path:
     """The library's path, named by a hash of its source, the shared headers
     it may include (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256((CSRC / KERNELS[name][0]).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -72,7 +85,7 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = final.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / KERNELS[name][0])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, final
