@@ -28,7 +28,7 @@ Phases (any failure raises and the script exits non-zero):
    B=1024 and B=16384, for K1, K2f and K2b (AFNS5), and K1-TVλ, K3f and K3b
    (TVλ on phase 3's DNS panel, both exact_jacobian settings), and
    value-and-gradient evals/s through the fused objective; the plain
-   versions once, for information.
+   versions once, at B=1024, for information.
 6. gradient pairs at full width — through the fused objective's
    value-and-gradient (launch counts 1 and 1, plain versions 0): AFNS5,
    B=1024 (K2f + K2b) and TVλ, B=1024, under both exact_jacobian settings
@@ -98,6 +98,39 @@ Phases (any failure raises and the script exits non-zero):
     NaN tail on the card matches the CPU in float64 at rtol 1e-6.  Prints
     the wall, group iterations, launches and where the wall went (K4's
     device time from CUDA events around each launch, the phases' walls).
+12. K5 at full width — the SV particle filter on this file's AFNS5 panel,
+    N=20, T=360, D=256 stationary draws (benchmarks/common.py's
+    ``stationary_draws`` of bench's AFNS5 point, scale 0.02), P=1024 slots
+    with 1000 live (config 3's work), numpy-seeded noise: the float64
+    kernel against the plain float64 version at σ_h=0.2, rtol 1e-9 with
+    equal −inf sets; at σ_h=0 (no resampling changes a trajectory) the
+    plain float64 version against engine "sqrt" at rtol 1e-9 and the
+    float32 kernel against the plain float32 version at rtol 5e-4, atol
+    1e-2; the float32 kernel at σ_h=0.2 against the plain float64 version
+    by paired gaps per draw (a float32 weight on a resampling boundary can
+    fall either way and de-synchronise a trajectory): equal −inf sets, the
+    mean gap within 3 standard errors of the gaps' spread plus the largest
+    float32 gap at σ_h=0 on the same draws, the median relative gap under
+    1e-4.  Then
+    "1C" at D=64, P=128, the float64 kernel against the plain version at
+    rtol 1e-9 on: NaN columns, ess_threshold 0 and 1.5, every offset u = 0,
+    96 live of 128 slots, per-draw (φ_h, σ_h); two invalid draws in each
+    (Φ₁₁ > 1 and σ² < 0) give −inf.  And at phase 14's shapes (D=392,
+    P=256, 200 live, one noise pair shared by every draw as an expanded
+    view): float64 at rtol 1e-9, float32 by the paired criterion.
+13. K5 timing — CUDA events, float32: config 3 (D=1000, P=1024, 1000
+    live) and the batches of phase 14's search (8 and 8×49 draws, P=256,
+    200 live, on one shared noise pair); the plain version once at config
+    3; the bound from the operation count of these inputs.
+14. ``estimate_sv`` — AFNS5, N=20, T=360, 8 stationary starts jittered from
+    bench's AFNS5 point, 200 particles, max_iters=200, with (φ_h, σ_h)
+    fixed (twice, from generators seeded alike: the same result bit for
+    bit) and searched, each with the launch counts set to 0 just before
+    it: K5 ≥ 1, its plain version 0; finite, the best ll at least the best
+    start's on the same noise, (φ_h, σ_h) in range; the wall and K5's share
+    of it.  Then "1C" in float64 (T=120, 2 starts, 128 particles,
+    max_iters=30) on the card against the same call on the CPU: the same
+    best start, ll at rtol 1e-8, the same iterations.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON object {"kernels": [...]} with each kernel's launches on the
@@ -563,6 +596,19 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(stop) / reps
 
 
+_PHASES = []
+
+
+def begin_phase(title):
+    """Print a phase's header with the seconds since the script started."""
+    elapsed = time.perf_counter() - _T0
+    _PHASES.append((title.split("]")[0] + "]", elapsed))
+    print(f"{title}  (t = {elapsed:.1f} s)")
+
+
+_T0 = time.perf_counter()
+
+
 def nvidia_smi(query):
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -951,6 +997,348 @@ def timed_estimate_steps(optimize, fused_ssd):
         fused_ssd.launch = launch
 
 
+# ---- the SV particle filter (K5) and estimate_sv: phases 12–14 -------------
+
+def afns5_point(n_params):
+    """bench.py's constrained AFNS5 point (the base of make_param_batch)."""
+    p = np.zeros(n_params)
+    p[0], p[1] = math.log(0.5), math.log(0.15)
+    p[2] = 4e-4
+    k = 3
+    for j in range(5):
+        for i in range(j + 1):
+            p[k] = 0.05 + 0.01 * i if i == j else 0.002
+            k += 1
+    p[18:23] = [4.0, -1.0, 0.5, -0.3, 0.2]
+    p[23:48] = np.diag([0.98, 0.94, 0.9, 0.92, 0.88]).reshape(-1)
+    return p
+
+
+def stationary_draws(spec, p, n_draws, seed=1, scale=0.02):
+    """benchmarks/common.py's jittered draws with Φ rescaled by 0.995/ρ(Φ)
+    where its spectral radius reaches 1."""
+    draws = jitter_starts(p, n_draws, seed=seed, scale=scale)
+    lo, hi = spec.layout["phi"]
+    Ms = spec.state_dim
+    for i in range(n_draws):
+        Phi = draws[i, lo:hi].reshape(Ms, Ms)
+        rho = float(np.max(np.abs(np.linalg.eigvals(Phi))))
+        if rho >= 1.0:
+            draws[i, lo:hi] = (Phi * (0.995 / rho)).reshape(-1)
+    return draws
+
+
+def pf_flops(Ms, N, n_live, draws, finite_cols):
+    """Operations of the SV filter that every run on these inputs needs, a
+    fused multiply-add counted as two: per live particle and step the
+    proposal (6: h, e^h, r, √r); per observed update 6Ms² + 7Ms + 15 (Sᵀz
+    and Sφ 2Ms² each, the rank-1 downdate 2Ms² + Ms with Sφ scaled by α
+    once, f, v, β and the log-likelihood term with its log, divide and
+    square root); the propagation 2Ms² + Ms (β) + 2Ms³ (ΦS) and the
+    Cholesky of A Aᵀ + Ω (2Ms + 1 an entry plus 2 per earlier column, and Ms
+    square roots); the weights 10 and, on a contributing step, the ESS 3.  A
+    NaN column's step needs no update (β and S carry over), so only the
+    observed columns' updates count.  Resampling is left out: how often it
+    fires depends on the run.  ``finite_cols`` flags the T − 1 steps'
+    columns."""
+    steps = len(finite_cols)
+    obs = int(sum(finite_cols))
+    contrib = int(sum(finite_cols[1:]))
+    chol = sum(2 * Ms + 1 + 2 * j for i in range(Ms) for j in range(i + 1)) + Ms
+    per_step = 6 + 2 * Ms * Ms + Ms + 2 * Ms ** 3 + chol + 10
+    per_update = 6 * Ms * Ms + 7 * Ms + 15
+    return draws * n_live * (steps * per_step + obs * N * per_update + contrib * 3)
+
+
+def storage_bytes(x):
+    """Bytes of the distinct elements a tensor reads: an expanded (stride-0)
+    axis counts once."""
+    n = 1
+    for size, stride in zip(x.shape, x.stride()):
+        if stride != 0:
+            n *= size
+    return n * x.element_size()
+
+
+def pf_work(inputs, spec, finite_cols):
+    """(bytes, flops) of one K5 launch: every input read once (the noise
+    once however many draws share it), the output written once."""
+    T, N = inputs.panel.shape
+    bytes_ = (nbytes(inputs.rows, inputs.panel, inputs.out) + storage_bytes(inputs.normals)
+              + storage_bytes(inputs.uniforms))
+    return bytes_, pf_flops(spec.state_dim, N, inputs.n_eff, inputs.rows.shape[0],
+                            finite_cols)
+
+
+def pf_distribution(got, ref, got0, ref0, what):
+    """A float32 filter against the float64 one where resampling fires, so
+    that a weight on a resampling boundary may fall either way and
+    de-synchronise a draw's trajectory: equal −inf sets; the paired gaps
+    got − ref with their mean within 3 standard errors of their own spread
+    plus the float32 rounding allowance, the largest gap at σ_h = 0 on the
+    same draws and noise (``got0``/``ref0``: no resampling, so float32
+    rounding alone); and the median relative gap per draw under 1e-4, a
+    fifth of the elementwise float32 rtol."""
+    got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    check(np.array_equal(np.isfinite(got), np.isfinite(ref)), f"{what}: −inf sets differ")
+    fin = np.isfinite(ref)
+    check(fin.sum() >= 2, f"{what}: fewer than 2 finite draws")
+    got0, ref0 = got0.double().cpu().numpy(), ref0.double().cpu().numpy()
+    fin0 = np.isfinite(ref0) & np.isfinite(got0)
+    check(fin0.any(), f"{what}: no finite draw at σ_h = 0")
+    rounding = float(np.abs(got0[fin0] - ref0[fin0]).max())
+    gaps = got[fin] - ref[fin]
+    se = float(np.std(gaps, ddof=1)) / math.sqrt(fin.sum())
+    mean_gap = abs(float(np.mean(gaps)))
+    tol = 3.0 * se + rounding
+    check(mean_gap <= tol, f"{what}: mean paired gap {mean_gap:.4f} > 3 SE {3 * se:.4f} "
+          f"+ rounding {rounding:.4f}")
+    med_rel = float(np.median(np.abs(gaps) / np.abs(ref[fin])))
+    check(med_rel < 1e-4, f"{what}: median relative gap {med_rel:.3e} ≥ 1e-4")
+    print(f"  {what}: ok, {int(fin.sum())} finite, mean paired gap {mean_gap:.4f} ≤ 3 SE "
+          f"{3 * se:.4f} + rounding {rounding:.4f}; median relative gap {med_rel:.3e} < 1e-4; "
+          f"max abs gap {np.abs(gaps).max():.3e}")
+    return float(np.abs(gaps).max())
+
+
+@contextlib.contextmanager
+def timed_pf_launches(fused_pf):
+    """CUDA events around every K5 launch inside the block; yields the list
+    of (draws, start event, stop event)."""
+    events = []
+    launch = fused_pf.launch
+
+    def timed(inputs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(inputs)
+        e1.record()
+        events.append((inputs.rows.shape[0], e0, e1))
+        return out
+
+    fused_pf.launch = timed
+    try:
+        yield events
+    finally:
+        fused_pf.launch = launch
+
+
+def sv_phases(yfm, dev, report):
+    """Phases 12–14: K5 against its plain version at full width and on the
+    edge cases, its timing, and estimate_sv on the card.  Returns K5's entry
+    of the kernels line."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_pf, sqrt_kf
+    from yieldfactormodels_jl_tpu_torch.ops.particle import draw_noise
+
+    f32, f64 = torch.float32, torch.float64
+    bp, ref_calls = fused_pf.pf_loglik_batch, fused_pf.reference
+
+    # ---- 12. K5 at full width ----------------------------------------------------
+    begin_phase("[12] K5 (SV particle filter) at full width: AFNS5, N=20, T=360, D=256, "
+          "P=1024, 1000 live")
+    spec, _ = yfm.create_model("AFNS5", MATURITIES)
+    spec64, _ = yfm.create_model("AFNS5", MATURITIES, float_type="float64")
+    panel64 = torch.as_tensor(make_panel(seed=0), device=dev, dtype=f64)
+    base = afns5_point(spec.n_params)
+    D, Pn, n_live = 256, 1024, 1000
+    rng = np.random.default_rng(12)
+    p64 = torch.as_tensor(stationary_draws(spec64, base, D), device=dev, dtype=f64)
+    nz64 = torch.as_tensor(rng.standard_normal((D, T_MONTHS - 1, Pn)), device=dev)
+    u64 = torch.as_tensor(rng.uniform(size=(D, T_MONTHS - 1)), device=dev)
+    args64 = (p64, panel64, nz64, u64)
+    args32 = tuple(x.float() for x in args64)
+    pf_errs = []
+    got64 = bp(spec64, *args64, n_particles=n_live)
+    ref64 = fused_pf.pf_loglik_batch_reference(spec64, *args64, n_particles=n_live)
+    check(int(torch.isfinite(ref64).sum()) >= 0.9 * D, "too few finite draws at σ_h=0.2")
+    close(got64, ref64, 1e-9, 0.0, "σ_h=0.2 f64 kernel vs plain f64")
+    ref0_64 = fused_pf.pf_loglik_batch_reference(spec64, *args64, n_particles=n_live,
+                                                 sv_sigma=0.0)
+    close(ref0_64, sqrt_kf.get_loss(spec64, p64, panel64), 1e-9, 0.0,
+          "σ_h=0 plain f64 vs engine \"sqrt\"")
+    got0_32 = bp(spec, *args32, n_particles=n_live, sv_sigma=0.0)
+    ref0_32 = fused_pf.pf_loglik_batch_reference(spec, *args32, n_particles=n_live,
+                                                 sv_sigma=0.0)
+    pf_errs.append(close(got0_32, ref0_32, 5e-4, 1e-2, "σ_h=0 f32 kernel vs plain f32"))
+    got32 = bp(spec, *args32, n_particles=n_live)
+    pf_errs.append(pf_distribution(got32, ref64, got0_32, ref0_64,
+                                   "σ_h=0.2 f32 kernel vs plain f64 (paired)"))
+    del nz64, args64, args32
+
+    print("  estimate_sv's shapes: D=392, P=256, 200 live, one noise pair shared by "
+          "every draw (an expanded view)")
+    rng = np.random.default_rng(16)
+    pe = torch.as_tensor(stationary_draws(spec64, base, 392, seed=3), device=dev, dtype=f64)
+    nz1 = torch.as_tensor(rng.standard_normal((T_MONTHS - 1, 256)), device=dev)
+    u1 = torch.as_tensor(rng.uniform(size=T_MONTHS - 1), device=dev)
+    args_e = (pe, panel64, nz1.expand(392, -1, -1), u1.expand(392, -1))
+    ref_e = fused_pf.pf_loglik_batch_reference(spec64, *args_e, n_particles=200)
+    close(bp(spec64, *args_e, n_particles=200), ref_e, 1e-9, 0.0,
+          "shared noise f64 kernel vs plain f64")
+    args_e32 = tuple(x.float() for x in args_e)
+    pf_errs.append(pf_distribution(
+        bp(spec, *args_e32, n_particles=200), ref_e,
+        bp(spec, *args_e32, n_particles=200, sv_sigma=0.0),
+        fused_pf.pf_loglik_batch_reference(spec64, *args_e, n_particles=200, sv_sigma=0.0),
+        "shared noise f32 kernel vs plain f64 (paired)"))
+
+    print("  \"1C\" edge cases, D=64, P=128, f64 kernel vs plain f64 at rtol 1e-9")
+    dns64, _ = yfm.create_model("1C", MATURITIES, float_type="float64")
+    Dc, Pc = 64, 128
+    rng = np.random.default_rng(13)
+    pc = kalman_draws(dns64, Dc, rng, [0.4, -0.1, 0.05])
+    pc[0, dns64.layout["phi"][0]] = 1.5           # Φ₁₁ > 1: P₀ fails to factor
+    pc[1, dns64.layout["obs_var"][0]] = -4e-4     # σ² < 0: f ≤ 0
+    pc = torch.as_tensor(pc, device=dev)
+    dpanel = make_dns_panel(seed=2)
+    dpanel64 = torch.as_tensor(dpanel, device=dev)
+    nan_panel = dpanel.copy()
+    nan_panel[:, 40] = np.nan
+    nan_panel[7, 200] = np.nan
+    nzc = torch.as_tensor(rng.standard_normal((Dc, T_MONTHS - 1, Pc)), device=dev)
+    uc = torch.as_tensor(rng.uniform(size=(Dc, T_MONTHS - 1)), device=dev)
+    phis = torch.linspace(0.5, 0.98, Dc, device=dev, dtype=f64)
+    sigs = torch.linspace(0.05, 0.5, Dc, device=dev, dtype=f64)
+    edge = {"NaN columns": ({}, torch.as_tensor(nan_panel, device=dev), uc),
+            "ess_threshold 0": ({"ess_threshold": 0.0}, dpanel64, uc),
+            "ess_threshold 1.5": ({"ess_threshold": 1.5}, dpanel64, uc),
+            "all offsets u = 0": ({"ess_threshold": 1.5}, dpanel64, torch.zeros_like(uc)),
+            "96 live of 128": ({"n_particles": 96}, dpanel64, uc),
+            "per-draw (φ_h, σ_h)": ({"sv_phi": phis, "sv_sigma": sigs}, dpanel64, uc)}
+    for what, (kw, data, u) in edge.items():
+        got = bp(dns64, pc, data, nzc, u, **kw)
+        ref = fused_pf.pf_loglik_batch_reference(dns64, pc, data, nzc, u, **kw)
+        g = got.cpu()
+        check(g[0] == -math.inf and g[1] == -math.inf,
+              f"{what}: the invalid draws must give −inf, got {g[:2].tolist()}")
+        check(int(torch.isfinite(ref).sum()) == Dc - 2, f"{what}: a valid draw is not finite")
+        close(got, ref, 1e-9, 0.0, f"1C {what}")
+
+    # ---- 13. K5 timing ----------------------------------------------------------------
+    begin_phase("[13] K5 timing (CUDA events), float32")
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    panel32 = panel64.float()
+    finite_cols = torch.isfinite(panel32).all(0).tolist()[:T_MONTHS - 1]
+    rng = np.random.default_rng(14)
+    shapes = {}
+    P_sv, n_sv, S_sv = 256, 200, 8
+    nz_sv = torch.as_tensor(rng.standard_normal((T_MONTHS - 1, P_sv)), device=dev, dtype=f32)
+    u_sv = torch.as_tensor(rng.uniform(size=T_MONTHS - 1), device=dev, dtype=f32)
+    for label, Dt, Pt, live in (("config 3", 1000, 1024, 1000),
+                                (f"estimate_sv step, {S_sv} starts", S_sv, P_sv, n_sv),
+                                (f"estimate_sv simplex, {S_sv}x49", S_sv * 49, P_sv, n_sv)):
+        pt = torch.as_tensor(stationary_draws(spec, base, Dt, seed=2), device=dev, dtype=f32)
+        if Pt == 1024:
+            nzt = torch.randn((Dt, T_MONTHS - 1, Pt), device=dev, dtype=f32,
+                              generator=torch.Generator(device=dev).manual_seed(3))
+            ut = torch.rand((Dt, T_MONTHS - 1), device=dev, dtype=f32,
+                            generator=torch.Generator(device=dev).manual_seed(4))
+        else:
+            nzt, ut = nz_sv.expand(Dt, T_MONTHS - 1, Pt), u_sv.expand(Dt, T_MONTHS - 1)
+        inputs = fused_pf.kernel_inputs(spec, pt, panel32, nzt, ut, live, 0.95, 0.2, 0.5)
+        ms = cuda_ms(lambda: fused_pf.launch(inputs), reps=3 if Dt >= 1000 else 20, warmup=1)
+        bytes_, flops = pf_work(inputs, spec, finite_cols)
+        bound_ms, bound_by = bound(bytes_, flops)
+        row = {"D": Dt, "P": Pt, "n_live": live, "ms": ms, "bytes": bytes_, "flops": flops,
+               "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": None,
+               "particle_steps_per_s": Dt * live * (T_MONTHS - 1) / (ms * 1e-3)}
+        if label == "config 3":
+            row["plain_ms"] = cuda_ms(lambda: fused_pf.reference(inputs), reps=1, warmup=0)
+            del nzt
+        shapes[label] = row
+        plain_txt = "" if row["plain_ms"] is None else f", plain {row['plain_ms']:.1f} ms"
+        print(f"  {label} (D={Dt}, P={Pt}, {live} live): kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; "
+              f"{flops / (Dt * live * (T_MONTHS - 1)):.0f} flop a particle-step, "
+              f"{bytes_ / 1e6:.1f} MB){plain_txt}")
+    report["k5_shapes"] = shapes
+    report["k5_clock_mhz"] = clock_mhz
+
+    # ---- 14. estimate_sv on the card --------------------------------------------------
+    begin_phase(f"[14] estimate_sv: AFNS5, N=20, T=360, S={S_sv} starts, {n_sv} particles, "
+          f"max_iters=200")
+    panel_np = make_panel(seed=0)
+    starts = stationary_draws(spec, base, S_sv, seed=5)
+    raw = yfm.untransform_params(spec, torch.as_tensor(starts)).numpy()
+    sv_runs = {}
+    with timed_pf_launches(fused_pf) as events:
+        for label, full in (("fixed (φ_h, σ_h)", False), ("fixed, again", False),
+                            ("(φ_h, σ_h) searched", True)):
+            events.clear()
+            bp.launches = 0
+            ref_calls.calls = 0
+            t0 = time.perf_counter()
+            out = yfm.estimate_sv(spec, panel_np, raw,
+                                  torch.Generator(device=dev).manual_seed(21),
+                                  n_particles=n_sv, max_iters=200, estimate_sv_params=full)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k5_s = sum(e0.elapsed_time(e1) for _, e0, e1 in events) / 1e3
+            by_batch = {}
+            for Db, _, _ in events:
+                by_batch[Db] = by_batch.get(Db, 0) + 1
+            run = {"ll": out[1], "lls": out[2].tolist(), "iters": out[3].tolist(),
+                   "best": out[0], "wall_s": wall, "k5_s": k5_s, "launches": bp.launches,
+                   "launches_by_batch": by_batch, "plain_calls": ref_calls.calls}
+            if full:
+                run["sv_hat"] = out[4]
+            sv_runs[label] = run
+            print(f"  {label}: ll {out[1]:.6f}, iterations {out[3].tolist()}, launches "
+                  f"{bp.launches} (by batch {by_batch}), plain {ref_calls.calls}; wall "
+                  f"{wall:.2f} s, K5 on the card {k5_s:.2f} s ({100 * k5_s / wall:.1f}%)"
+                  + (f"; (φ_h, σ_h) = ({out[4][0]:.4f}, {out[4][1]:.4f})" if full else ""))
+            check(bp.launches >= 1, f"estimate_sv {label}: K5 never launched")
+            check(ref_calls.calls == 0, f"estimate_sv {label}: the plain version ran")
+            check(math.isfinite(out[1]), f"estimate_sv {label}: non-finite ll")
+            if full:
+                check(-1.0 < out[4][0] < 1.0 and out[4][1] > 0.0,
+                      f"estimate_sv: (φ_h, σ_h) = {out[4]} out of range")
+    a, b = sv_runs["fixed (φ_h, σ_h)"], sv_runs["fixed, again"]
+    check(a["ll"] == b["ll"] and np.array_equal(a["best"], b["best"])
+          and a["iters"] == b["iters"], "estimate_sv: a second call with the same "
+          "generator differs")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    nz_s, u_s = draw_noise(T_MONTHS, P_sv, gen, f32, dev)
+    ll_starts = bp(spec, yfm.transform_params(spec, torch.as_tensor(raw, device=dev,
+                                                                    dtype=f32)),
+                   panel_np, nz_s.expand(S_sv, -1, -1), u_s.expand(S_sv, -1),
+                   n_particles=n_sv)
+    best_start = float(ll_starts.max())
+    check(a["ll"] >= best_start, f"estimate_sv: ll {a['ll']} below the best start's "
+          f"{best_start}")
+    print(f"  deterministic: ok; best ll {a['ll']:.6f} ≥ best start {best_start:.6f}")
+
+    print("  \"1C\" f64 on the card vs the CPU: T=120, S=2, P=128, max_iters=30")
+    dns_starts = kalman_draws(dns64, 2, np.random.default_rng(15), [0.4, -0.1, 0.05])
+    raw_c = yfm.untransform_params(dns64, torch.as_tensor(dns_starts)).numpy()
+    small = dpanel[:, :120]
+    gen = torch.Generator().manual_seed(16)
+    noise = (torch.randn(119, 128, generator=gen, dtype=f64),
+             torch.rand(119, generator=gen, dtype=f64))
+    kw = dict(n_particles=128, max_iters=30, noise=noise)
+    on_card = yfm.estimate_sv(dns64, small, raw_c, **kw)
+    on_cpu = yfm.estimate_sv(dns64, small, raw_c, device="cpu", **kw)
+    check(int(np.argmax(on_card[2])) == int(np.argmax(on_cpu[2])),
+          "estimate_sv card vs CPU: another best start")
+    check(np.array_equal(on_card[3], on_cpu[3]), f"estimate_sv card vs CPU: iterations "
+          f"{on_card[3]} vs {on_cpu[3]}")
+    check(abs(on_card[1] - on_cpu[1]) <= 1e-8 * abs(on_cpu[1]),
+          f"estimate_sv card vs CPU: ll {on_card[1]} vs {on_cpu[1]}")
+    print(f"  ok: ll {on_card[1]:.10f} vs {on_cpu[1]:.10f}, iterations {on_card[3].tolist()}")
+    report["estimate_sv"] = {k: {kk: (vv.tolist() if isinstance(vv, np.ndarray) else vv)
+                                 for kk, vv in v.items()} for k, v in sv_runs.items()}
+    report["estimate_sv"]["best_start_ll"] = best_start
+
+    head = shapes["config 3"]
+    return {
+        "name": "K5 fused_pf", "route": "cuda",
+        "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_pf.cu",
+        "replaces": "yieldfactormodels_jl_tpu/ops/pallas_pf.py:56",
+        "launches": sv_runs["fixed (φ_h, σ_h)"]["launches"], "max_abs_err": max(pf_errs),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None, "shapes": shapes}
+
+
 def main(json_path=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -975,7 +1363,7 @@ def main(json_path=None) -> int:
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- 1. build ------------------------------------------------------------
-    print("[1] build")
+    begin_phase("[1] build")
     t0 = time.perf_counter()
     _build.build_all()
     for name in _build.KERNELS:
@@ -988,7 +1376,7 @@ def main(json_path=None) -> int:
                 print(f"  {name}: {line.strip()}")
 
     # ---- 2. full width: the main path -----------------------------------------
-    print("[2] full width: AFNS5, N=20, T=360")
+    begin_phase("[2] full width: AFNS5, N=20, T=360")
     spec, _ = yfm.create_model("AFNS5", MATURITIES)
     spec64, _ = yfm.create_model("AFNS5", MATURITIES, float_type="float64")
     panel = make_panel(seed=0)
@@ -1023,7 +1411,7 @@ def main(json_path=None) -> int:
     report["loglik_best"] = float(lls[1024][best])
 
     # ---- 3. other families ------------------------------------------------------
-    print("[3] other families at B=2048")
+    begin_phase("[3] other families at B=2048")
     rng = np.random.default_rng(7)
     Bo = 2048
     gapped = panel.copy()
@@ -1069,7 +1457,7 @@ def main(json_path=None) -> int:
                       "invalid draw must give −inf and leave its neighbour finite")
 
     # ---- 4. forecast -------------------------------------------------------------
-    print("[4] forecast: predict from the best draw, 12-step NaN tail")
+    begin_phase("[4] forecast: predict from the best draw, 12-step NaN tail")
     cpu = yfm.predict(spec64, cons[1024][best].cpu().numpy(), panel_ext, device="cpu")
     for key, val in forecast.items():
         check(val.shape == cpu[key].shape, f"predict {key}: {val.shape} vs {cpu[key].shape}")
@@ -1078,7 +1466,7 @@ def main(json_path=None) -> int:
     check(forecast["preds"].shape == (N_MATURITIES, T_MONTHS + 12), "preds shape")
 
     # ---- 5. timing ---------------------------------------------------------------
-    print("[5] timing (CUDA events)")
+    begin_phase("[5] timing (CUDA events)")
     shapes, grad_shapes, tvl_shapes = {}, {}, {}
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     panel32 = torch.as_tensor(panel, device=dev, dtype=f32)
@@ -1088,8 +1476,10 @@ def main(json_path=None) -> int:
         inputs = fused_kf.kernel_inputs(spec, p32, panel32, 0, T_MONTHS)
         ms = cuda_ms(lambda: fused_kf.launch(inputs), reps=20)
         entry_ms = cuda_ms(lambda: yfm.batched_loglik(spec, p32, panel32), reps=10)
-        plain_ms = cuda_ms(lambda: fused_kf.batched_loglik_reference(spec, p32, panel32),
-                           reps=1, warmup=1)
+        plain_ms = None  # the plain versions are timed once, at B=1024
+        if B == 1024:
+            plain_ms = cuda_ms(lambda: fused_kf.batched_loglik_reference(spec, p32, panel32),
+                               reps=1, warmup=0)
         bytes_, flops = kernel_work(inputs, panel32)
         bound_ms, bound_by = bound(bytes_, flops)
         shapes[str(B)] = {
@@ -1097,8 +1487,9 @@ def main(json_path=None) -> int:
             "evals_per_s": B / (ms * 1e-3), "bytes": bytes_, "flops": flops,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "chain_ms": chain_ms(spec.state_dim, N_MATURITIES, T_MONTHS, clock_mhz)}
+        plain_txt = "" if plain_ms is None else f", plain {plain_ms:.1f} ms"
         print(f"  K1 B={B}: kernel {ms:.4f} ms ({B / (ms * 1e-3):.0f} evals/s), "
-              f"entry point {entry_ms:.4f} ms, plain {plain_ms:.1f} ms, "
+              f"entry point {entry_ms:.4f} ms{plain_txt}, "
               f"bound {bound_ms:.4f} ms ({flops / B:.0f} flop/draw), "
               f"serial-chain estimate {shapes[str(B)]['chain_ms']:.4f} ms")
 
@@ -1109,11 +1500,13 @@ def main(json_path=None) -> int:
         grads = G.launch_backward(bufs, chk, g)
         fwd_ms = cuda_ms(lambda: G.launch_forward(bufs), reps=10)
         bwd_ms = cuda_ms(lambda: G.launch_backward(bufs, chk, g), reps=5)
-        plain = [a.detach() if a is not None else None for a in args]
-        fwd_plain_ms = cuda_ms(lambda: G.forward_reference(*plain), reps=1, warmup=0)
-        chk_plain = G.forward_reference(*plain)[1]
-        bwd_plain_ms = cuda_ms(lambda: G.adjoint_reference(
-            *plain[:6], *plain[8:], chk_plain, g), reps=1, warmup=0)
+        fwd_plain_ms = bwd_plain_ms = None
+        if B == 1024:
+            plain = [a.detach() if a is not None else None for a in args]
+            fwd_plain_ms = cuda_ms(lambda: G.forward_reference(*plain), reps=1, warmup=0)
+            chk_plain = G.forward_reference(*plain)[1]
+            bwd_plain_ms = cuda_ms(lambda: G.adjoint_reference(
+                *plain[:6], *plain[8:], chk_plain, g), reps=1, warmup=0)
         X = yfm.untransform_params(spec, p32)
         vag_ms = cuda_ms(lambda: vag32(X), reps=5, warmup=2)
         (fb, ff), (bb, bf), bf_run = grad_kernel_work(bufs, panel32, out, chk, grads)
@@ -1125,9 +1518,11 @@ def main(json_path=None) -> int:
             "K2b": {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bytes": bb, "flops": bf,
                     "bound_ms": b_bound, "bound_by": b_by, "kernel_flops": bf_run},
             "value_and_grad_ms": vag_ms, "grad_evals_per_s": B / (vag_ms * 1e-3)}
-        print(f"  K2f B={B}: kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.1f} ms, "
+        fp_txt = "" if fwd_plain_ms is None else f", plain {fwd_plain_ms:.1f} ms"
+        bp_txt = "" if bwd_plain_ms is None else f", plain {bwd_plain_ms:.1f} ms"
+        print(f"  K2f B={B}: kernel {fwd_ms:.4f} ms{fp_txt}, "
               f"bound {f_bound:.4f} ms ({f_by})")
-        print(f"  K2b B={B}: kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.1f} ms, "
+        print(f"  K2b B={B}: kernel {bwd_ms:.4f} ms{bp_txt}, "
               f"bound {b_bound:.4f} ms ({b_by}; {bf / B:.0f} flop/draw needed, "
               f"{bf_run / B:.0f} run by the kernel)")
         print(f"  value-and-gradient through the fused objective B={B}: "
@@ -1136,8 +1531,8 @@ def main(json_path=None) -> int:
     report["grad_shapes"] = grad_shapes
 
     # TVλ on phase 3's DNS panel: K1-TVλ beside K3f and K3b in the same
-    # call, both Jacobian settings; the plain versions once, under the
-    # spec's default (the reference's Jacobian)
+    # call, both Jacobian settings; the plain versions once, at B=1024 under
+    # the spec's default (the reference's Jacobian)
     dns_panel32 = torch.as_tensor(dns_panel, device=dev, dtype=f32)
     for exact in (False, True):
         s32 = dataclasses.replace(tvl32, exact_jacobian=exact)
@@ -1155,7 +1550,7 @@ def main(json_path=None) -> int:
             fwd_ms = cuda_ms(lambda: G.launch_forward_tvl(bufs, exact), reps=10)
             bwd_ms = cuda_ms(lambda: G.launch_backward_tvl(bufs, exact, chk, g), reps=5)
             fwd_plain_ms = bwd_plain_ms = None
-            if not exact:
+            if not exact and B == 1024:
                 plain = [a.detach() if torch.is_tensor(a) else a for a in args]
                 fwd_plain_ms = cuda_ms(lambda: G.forward_reference_tvl(*plain), reps=1,
                                        warmup=0)
@@ -1175,7 +1570,7 @@ def main(json_path=None) -> int:
                 "K3b": {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bytes": bb, "flops": bf,
                         "bound_ms": b_bound, "bound_by": b_by, "kernel_flops": bf_run},
                 "value_and_grad_ms": vag_ms, "grad_evals_per_s": B / (vag_ms * 1e-3)}
-            plain_txt = ("" if exact else f", plain {fwd_plain_ms:.1f} / "
+            plain_txt = ("" if fwd_plain_ms is None else f", plain {fwd_plain_ms:.1f} / "
                          f"{bwd_plain_ms:.1f} ms")
             print(f"  TVλ exact={exact} B={B}: K1 {k1_ms:.4f} ms, K3f {fwd_ms:.4f} ms "
                   f"(bound {f_bound:.4f}, {f_by}), K3b {bwd_ms:.4f} ms (bound "
@@ -1185,7 +1580,7 @@ def main(json_path=None) -> int:
     report["tvl_shapes"] = tvl_shapes
 
     # ---- 6. gradient pairs at full width ---------------------------------------
-    print("[6] gradient pair: K2f + K2b against the plain versions")
+    begin_phase("[6] gradient pair: K2f + K2b against the plain versions")
     grad_errs = {"K2f": [], "K2b": [], "K2b_leaves": [],
                  "K3f": [], "K3b": [], "K3b_leaves": []}
     wins = torch.as_tensor(rng.integers(0, 100, 2048), device=dev), \
@@ -1315,13 +1710,13 @@ def main(json_path=None) -> int:
 
     # ---- 7. the fused MLE ----------------------------------------------------------
     S = 256
-    print(f"[7] estimate: AFNS5, N=20, T=360, S={S}, max_iters=50")
+    begin_phase(f"[7] estimate: AFNS5, N=20, T=360, S={S}, max_iters=50")
     # the panel simulated from the model at the first of phase 2's draws, as
     # bench.py's newton bench simulates its panel at its draws' base point
     sim = simulate_panel(spec64, draws[1024][0].cpu().numpy(), seed=9)
     starts = make_param_batch(spec.n_params, S, seed=11)
     fits = {"AFNS5": full_width_fit(yfm, optimize, spec, spec64, sim, starts, dev)}
-    print(f"[7] estimate: TVλ, N=20, T=360, S={S}, max_iters=50")
+    begin_phase(f"[7] estimate: TVλ, N=20, T=360, S={S}, max_iters=50")
     tvl_starts = kalman_draws(tvl64, S, np.random.default_rng(13), TVL_DELTA)
     sim_tvl = simulate_panel(tvl64, tvl_starts[0], seed=17)
     fits["TVλ"] = full_width_fit(yfm, optimize, tvl32, tvl64, sim_tvl, tvl_starts, dev)
@@ -1337,7 +1732,7 @@ def main(json_path=None) -> int:
     # ---- 8. rolling-window re-estimation ---------------------------------------------
     W, S8 = 8, 32
     ends = [248 + 16 * w for w in range(W)]
-    print(f"[8] estimate_windows: W={W} expanding windows [0, 248+16w) × S={S8} starts")
+    begin_phase(f"[8] estimate_windows: W={W} expanding windows [0, 248+16w) × S={S8} starts")
     report["estimate_windows"] = {}
     for label, s32, sim_np, starts_np in (("AFNS5", spec, sim, starts[:S8]),
                                           ("TVλ", tvl32, sim_tvl, tvl_starts[:S8])):
@@ -1348,7 +1743,7 @@ def main(json_path=None) -> int:
     from yieldfactormodels_jl_tpu_torch.models import api as tapi
     from yieldfactormodels_jl_tpu_torch.ops import fused_ssd
 
-    print("[9] K4 (score-driven loss) at full width: N=20, T=360, bench's DNS panel")
+    begin_phase("[9] K4 (score-driven loss) at full width: N=20, T=360, bench's DNS panel")
     bpanel = bench_dns_panel()
     bpanel64 = torch.as_tensor(bpanel, device=dev, dtype=f64)
     bpanel32 = bpanel64.float()
@@ -1422,7 +1817,7 @@ def main(json_path=None) -> int:
                 gp64, 130, 340, expect_all_inf=True)
 
     # ---- 10. K4 timing ----------------------------------------------------------------
-    print("[10] K4 timing (CUDA events), float32")
+    begin_phase("[10] K4 timing (CUDA events), float32")
     k4_shapes = {}
     for code, s64 in ssd_specs.items():
         s32 = dataclasses.replace(s64, dtype_name="float32")
@@ -1447,7 +1842,7 @@ def main(json_path=None) -> int:
     report["k4_determined"] = k4_counts
 
     # ---- 11. estimate_steps on config 6 ------------------------------------------------
-    print("[11] estimate_steps: 1SSD-NNS, N=20, T=360, 3 starts, 10 group iterations")
+    begin_phase("[11] estimate_steps: 1SSD-NNS, N=20, T=360, 3 starts, 10 group iterations")
     cfg, _ = yfm.create_model("1SSD-NNS", MATURITIES)
     cfg64 = ssd_specs["1SSD-NNS"]
     starts6 = jitter_starts(ssd_nns_params(cfg), 3, scale=0.02).T  # (P, 3)
@@ -1518,6 +1913,8 @@ def main(json_path=None) -> int:
         "neldermead_s": phases["neldermead_s"], "neldermead_host_s": nm_host_s,
         "closed_form_s": phases["closed_s"], "verify_s": phases["verify_s"]}
 
+    k5 = sv_phases(yfm, dev, report)
+
     head = shapes["1024"]
     kernels = [{
         "name": "K1 fused_kf", "route": "cuda",
@@ -1563,7 +1960,11 @@ def main(json_path=None) -> int:
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
         "shapes": k4_shapes})
+    kernels.append(k5)
     report["kernels"] = kernels
+    report["phase_start_s"] = dict(_PHASES)
+    report["wall_s"] = time.perf_counter() - _T0
+    print(f"  chip_smoke wall {report['wall_s']:.1f} s")
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)
         with open(json_path, "w") as fh:

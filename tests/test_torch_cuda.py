@@ -8,7 +8,10 @@ installed:
 
 Tolerances: the float32 kernel against the plain float64 version at rtol
 5e-4, atol 1e-2 (tests/test_pallas_kf.py's), the float64 instantiation at
-rtol 1e-9 (the same arithmetic in another order).
+rtol 1e-9 (the same arithmetic in another order).  The SV particle filter
+(K5) in float32 is held elementwise only without volatility noise: with it,
+a weight on a resampling boundary may fall either way in another summation
+order.
 """
 
 import numpy as np
@@ -366,3 +369,133 @@ def test_estimate_steps_on_the_card_matches_the_cpu(card):
                                                    device="cpu")
     np.testing.assert_array_equal(init_c, init_h)
     np.testing.assert_allclose(ll_card, ll_cpu, rtol=1e-6)
+
+
+def _afns5_batch(spec, D, rng):
+    """(D, 48) AFNS5 draws around the JAX suite's stable point, decay
+    drivers and δ jittered."""
+    p = np.zeros(48)
+    p[0], p[1], p[2] = np.log(0.5), np.log(0.15), 4e-4
+    k = 3
+    for j in range(5):
+        for i in range(j + 1):
+            p[k] = 0.05 + 0.01 * i if i == j else 0.002
+            k += 1
+    p[18:23] = [4.0, -1.0, 0.5, -0.3, 0.2]
+    p[23:48] = np.diag([0.98, 0.94, 0.9, 0.92, 0.88]).reshape(-1)
+    b = np.tile(p, (D, 1))
+    b[:, 0:2] += 0.05 * rng.standard_normal((D, 2))
+    b[:, 18:23] += 0.05 * rng.standard_normal((D, 5))
+    return b
+
+
+def _pf_case(card, D=6, T=40, P_slots=256, seed=0):
+    from tests import oracle
+
+    rng = np.random.default_rng(seed)
+    mats = np.asarray(MATS)
+    data = oracle.simulate_dns_panel(rng, mats, T=T)
+    s64, _ = P.create_model("AFNS5", MATS, float_type="float64")
+    batch = _afns5_batch(s64, D, rng)
+    nz = rng.standard_normal((D, T - 1, P_slots))
+    u = rng.uniform(size=(D, T - 1))
+    return s64, *(torch.as_tensor(x, device=card) for x in (batch, data, nz, u))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sv 0.2", "NaN column", "invalid draws", "dead slots",
+                                  "u = 0", "per-draw sv"])
+def test_fused_pf_float64_matches_plain_version(card, case):
+    """K5 in float64 against its plain version on the same inputs, rtol 1e-9
+    (the same arithmetic, block sums in another order), equal −Inf sets."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_pf
+
+    s64, batch, data, nz, u = _pf_case(card)
+    kw = {}
+    if case == "NaN column":
+        data[:, 9] = float("nan")
+    if case == "invalid draws":
+        batch[0, 23] = 1.5       # Φ₁₁ > 1
+        batch[1, 2] = -4e-4      # σ² < 0
+    if case == "dead slots":
+        kw["n_particles"] = 200
+    if case == "u = 0":
+        u = torch.zeros_like(u)
+        kw["ess_threshold"] = 1.5
+    if case == "per-draw sv":
+        kw["sv_phi"] = torch.linspace(0.5, 0.95, batch.shape[0], device=card, dtype=torch.float64)
+        kw["sv_sigma"] = torch.linspace(0.05, 0.4, batch.shape[0], device=card,
+                                        dtype=torch.float64)
+    launches = fused_pf.pf_loglik_batch.launches
+    got = fused_pf.pf_loglik_batch(s64, batch, data, nz, u, **kw)
+    torch.cuda.synchronize()
+    assert fused_pf.pf_loglik_batch.launches == launches + 1
+    ref = fused_pf.pf_loglik_batch_reference(s64, batch, data, nz, u, **kw)
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+    if case == "invalid draws":
+        assert got[0] == -np.inf and got[1] == -np.inf
+    fin = np.isfinite(ref)
+    assert fin.sum() >= batch.shape[0] - 2
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_fused_pf_float32_without_volatility_noise(card):
+    """K5 in float32 at σ_h = 0 (every particle the exact filter, so
+    resampling never changes a trajectory) against the plain float32
+    version elementwise, rtol 5e-4, atol 1e-2."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_pf
+
+    s64, batch, data, nz, u = _pf_case(card, P_slots=1024)
+    s32, _ = P.create_model("AFNS5", MATS)
+    args = (batch.float(), data.float(), nz.float(), u.float())
+    got = fused_pf.pf_loglik_batch(s32, *args, n_particles=1000, sv_sigma=0.0)
+    ref = fused_pf.pf_loglik_batch_reference(s32, *args, n_particles=1000, sv_sigma=0.0)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(ref).all())
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=5e-4, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_fused_pf_refuses_more_slots_than_threads(card):
+    """One thread a slot: more than 1,024 slots raise before any launch (the
+    plain version on the CPU runs them)."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_pf
+
+    s64, batch, data, nz, u = _pf_case(card, D=2, T=8, P_slots=1152)
+    launches = fused_pf.pf_loglik_batch.launches
+    with pytest.raises(ValueError, match="at most 1024 particle slots"):
+        fused_pf.pf_loglik_batch(s64, batch, data, nz, u)
+    assert fused_pf.pf_loglik_batch.launches == launches
+
+
+@pytest.mark.cuda
+def test_estimate_sv_on_the_card_matches_the_cpu(card):
+    """The lockstep ``estimate_sv`` on the card (K5) against the same call
+    on the CPU (K5's plain version), float64 both, on one noise pair: the
+    same best start, ll at rtol 1e-8, the same iterations."""
+    from tests import oracle
+    from yieldfactormodels_jl_tpu_torch.ops import fused_pf
+
+    spec, _ = P.create_model("1C", MATS, float_type="float64")
+    rng = np.random.default_rng(3)
+    data = oracle.simulate_dns_panel(rng, np.asarray(MATS), T=40)
+    p = np.zeros(spec.n_params)
+    p[0], p[1] = np.log(0.5), 4e-4
+    p[2], p[4], p[7] = 0.1, 0.08, 0.12
+    p[8:11] = [0.3, -0.1, 0.05]
+    p[11:20] = np.diag([0.95, 0.9, 0.85]).reshape(-1)
+    raw = P.untransform_params(spec, torch.as_tensor(p)).numpy()
+    starts = np.stack([raw, raw + 1e-3])
+    gen = torch.Generator().manual_seed(5)
+    noise = (torch.randn(39, 128, generator=gen, dtype=torch.float64),
+             torch.rand(39, generator=gen, dtype=torch.float64))
+    kw = dict(n_particles=128, max_iters=15, noise=noise)
+    launches = fused_pf.pf_loglik_batch.launches
+    card_run = P.estimate_sv(spec, data, starts, **kw)
+    assert fused_pf.pf_loglik_batch.launches > launches
+    cpu_run = P.estimate_sv(spec, data, starts, device="cpu", **kw)
+    assert int(np.argmax(card_run[2])) == int(np.argmax(cpu_run[2]))
+    np.testing.assert_allclose(card_run[1], cpu_run[1], rtol=1e-8)
+    np.testing.assert_allclose(card_run[2], cpu_run[2], rtol=1e-8)
+    np.testing.assert_array_equal(card_run[3], cpu_run[3])

@@ -10,22 +10,28 @@ kernels, for DNS/AFNS and the TVλ EKF), the fused multi-start MLE
 ``estimate`` and its rolling-window form ``estimate_windows``; for the
 score-driven families the scan filter, ``get_loss_array``, the fused value
 kernel and the block-coordinate ``estimate_steps`` with its
-``try_initializations`` grid.
+``try_initializations`` grid; the square-root engine "sqrt"; and under
+stochastic-volatility measurement errors the particle filter, its fused
+kernel over a draw batch and the simulated MLE ``estimate_sv``.
 """
 
 from .carry import params_from_jax
 from .estimation.optimize import (Convergence, estimate, estimate_steps,
                                   estimate_windows, last_multistart_report,
                                   try_initializations)
+from .estimation.sv import estimate_sv
 from .models.api import get_loss, get_loss_array, get_param_groups, predict
 from .models.params import transform_params, untransform_params
 from .models.registry import create_model
 from .ops.fused_kf import batched_loglik
 from .ops.fused_kf_grad import batched_loglik_diff
+from .ops.fused_pf import pf_loglik_batch
 from .ops.fused_ssd import batched_loss
+from .ops.particle import particle_filter_loglik
 
 __all__ = ["create_model", "transform_params", "untransform_params",
            "get_loss", "get_loss_array", "get_param_groups", "predict",
            "batched_loglik", "batched_loglik_diff", "batched_loss",
            "estimate", "estimate_windows", "estimate_steps", "try_initializations",
-           "last_multistart_report", "Convergence", "params_from_jax"]
+           "last_multistart_report", "Convergence", "params_from_jax",
+           "particle_filter_loglik", "pf_loglik_batch", "estimate_sv"]

@@ -2,8 +2,8 @@
 
 Counterpart of the engine registries of ``yieldfactormodels_jl_tpu/config.py``.
 The engine names are the JAX package's, so a caller can name any of them;
-the port runs "univariate" (the default) and "joint" for the Kalman
-families and "scan" for the score-driven ones so far, and
+the port runs "univariate" (the default), "joint" and "sqrt" for the
+Kalman families and "scan" for the score-driven ones so far, and
 ``models.api.get_loss`` says which ROADMAP item brings the others.
 """
 

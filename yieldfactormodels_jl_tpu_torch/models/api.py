@@ -17,7 +17,6 @@ from .specs import ModelSpec
 
 #: where each engine or family that is not ported yet comes from
 _NOT_PORTED = {
-    "sqrt": "ROADMAP.md Queue 1 item 7 (remaining sequential engines)",
     "assoc": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
     "slr": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
     "score_tree": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
@@ -64,7 +63,7 @@ def _check_engine(spec: ModelSpec, name: str):
 def get_loss(spec: ModelSpec, params, data, start=0, end=None, K: int = 1,
              engine: str | None = None, device=None):
     """The filter loss, shape ``params.shape[:-1]``: the Gaussian loglik of
-    the Kalman families ("univariate" by default, or "joint"), the
+    the Kalman families ("univariate" by default, "joint" or "sqrt"), the
     one-step-ahead −MSE of the score-driven families ("scan"; ``K`` filter
     passes)."""
     _require_filtered(spec)
@@ -87,6 +86,10 @@ def get_loss(spec: ModelSpec, params, data, start=0, end=None, K: int = 1,
     params, data = _inputs(spec, params, data, device)
     if name == "joint":
         return kalman.get_loss(spec, params, data, start, end)
+    if name == "sqrt":
+        from ..ops import sqrt_kf
+
+        return sqrt_kf.get_loss(spec, params, data, start, end)
     from ..ops import univariate_kf
 
     return univariate_kf.get_loss(spec, params, data, start, end)

@@ -42,6 +42,9 @@ KERNELS = {
     "fused_ssd": ("fused_ssd.cu", {
         "yfm_fused_ssd": [ctypes.c_int] * 8 + [ctypes.c_double] * 4
                          + [ctypes.c_void_p] * 5}, ("-fmad=false",)),
+    "fused_pf": ("fused_pf.cu", {
+        "yfm_fused_pf": [ctypes.c_int] * 8 + [ctypes.c_longlong] * 4
+                        + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 6}),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
