@@ -2,7 +2,11 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, run its main
 path, hold every kernel against its plain PyTorch version, and time it.
 
-    python3 chip_smoke.py [--json PATH]   # from the repository root; one CUDA card
+    python3 chip_smoke.py [--json PATH] [--only kalman,ssd,sv]
+                                          # from the repository root; one CUDA card
+
+``--only`` runs the build and the named phase groups alone (kalman: [2]–[8],
+ssd: [9]–[11], sv: [12]–[14]); the kernels line then holds their kernels.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -85,7 +89,13 @@ Phases (any failure raises and the script exits non-zero):
    340), which observes the partial column: −Inf; an invalid draw: −Inf.
 10. K4 timing — CUDA events at B=1, 23, 257, 16384 for 1SSD-NNS and SSD-NS,
     float32; the plain version once at B=257; the bound from the operation
-    count of the recursion on these inputs.
+    count of the recursion on these inputs.  Then, at B=1 in both types,
+    the stage clocks of one step from the clock build of the same source
+    (``fused_ssd_clocks``: clock64() stamps between the stages, which cost
+    ≈2% of the time), the latency-chain bound (the dependent path of a step
+    at the latencies a probe in that build measures) and the SASS
+    instructions of each kernel instance and of its step loop
+    (``cuobjdump``).
 11. ``estimate_steps`` on bench's config 6 ("ssd-nns-m3"): 1SSD-NNS, N=20,
     T=360, the DNS panel, 3 jittered starts of ``ssd_nns_params``, the
     default groups (Nelder–Mead, 500 iterations, on the 22-parameter head;
@@ -117,11 +127,15 @@ Phases (any failure raises and the script exits non-zero):
     96 live of 128 slots, per-draw (φ_h, σ_h); two invalid draws in each
     (Φ₁₁ > 1 and σ² < 0) give −inf.  And at phase 14's shapes (D=392,
     P=256, 200 live, one noise pair shared by every draw as an expanded
-    view): float64 at rtol 1e-9, float32 by the paired criterion.
+    view): float64 at rtol 1e-9, float32 by the paired criterion.  And
+    above 1,024 slots (several slots a thread, their state in the wrapper's
+    scratch): AFNS5 at full width, D=16, P=1152 and 2048 (2000 live),
+    float64 at rtol 1e-9 with an invalid draw −inf.
 13. K5 timing — CUDA events, float32: config 3 (D=1000, P=1024, 1000
-    live) and the batches of phase 14's search (8 and 8×49 draws, P=256,
-    200 live, on one shared noise pair); the plain version once at config
-    3; the bound from the operation count of these inputs.
+    live), the batches of phase 14's search (8 and 8×49 draws, P=256,
+    200 live, on one shared noise pair) and D=64 at P=2048 (2000 live);
+    the plain version once at config 3; the bound from the operation count
+    of these inputs.
 14. ``estimate_sv`` — AFNS5, N=20, T=360, 8 stationary starts jittered from
     bench's AFNS5 point, 200 particles, max_iters=200, with (φ_h, σ_h)
     fixed (twice, from generators seeded alike: the same result bit for
@@ -141,10 +155,12 @@ main path, error, times and bound; the last line is
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -949,6 +965,175 @@ def ssd_flops(spec, data, start=0, end=None):
     return flops
 
 
+#: K4's stage clocks, in the order of fused_ssd.cu's Stage enum: the chain
+#: warp's stages, then the helper warp's waiting and working cycles
+SSD_STAGES = ("head", "ols1", "score1", "score2", "score3", "update", "build_obs",
+              "transition", "handoff", "stamp_pair", "helper_wait", "helper_work")
+#: operation classes of fused_ssd.cu's latency probe, in its LatOp order
+SSD_LAT_OPS = ("add", "mul", "div", "sqrt", "tanh", "exp", "shfl", "stamp")
+
+
+def ssd_stage_clocks(fused_ssd, spec, params, data, reps=3):
+    """K4's cycles by stage at one draw (the clock build, ``fused_ssd_clocks``:
+    the same source with clock64() stamps between a step's stages, draw 0,
+    lane 0 of each warp), from the last of ``reps`` launches; cycles a step,
+    averaged over the T−1 steps (every step of the full panel is observed);
+    the loop is the chain warp's.  Also the launch's time with the stamps
+    on."""
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    lib = _build.load("fused_ssd_clocks")
+    inputs = fused_ssd.kernel_inputs(spec, params, data, 0, data.shape[1])
+    clocks = torch.zeros(len(SSD_STAGES) + 3, dtype=torch.int64, device=params.device)
+    consts = [ctypes.c_double(c) for c in inputs.consts]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.yfm_fused_ssd_clocks(*inputs.ints, *consts,
+                                       *(x.data_ptr() for x in inputs.buffers),
+                                       inputs.out.data_ptr(), clocks.data_ptr(), stream)
+        check(err == 0, f"clock build launch failed: cudaError {err}")
+
+    ms = cuda_ms(run, reps=reps, warmup=1)
+    c = clocks.cpu().tolist()
+    steps, n_obs, loop = c[-3:]
+    per_step = {name: c[q] / steps for q, name in enumerate(SSD_STAGES)}
+    return {"cycles_per_step": per_step, "loop_cycles_per_step": loop / steps,
+            "steps": steps, "observed_steps": n_obs, "ms_with_stamps": ms}
+
+
+def ssd_latencies(dtype, dev):
+    """Cycles of one dependent operation of each class on one warp, in
+    ``dtype``, from the clock build's latency probe (128 in a chain)."""
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    lib = _build.load("fused_ssd_clocks")
+    out = torch.zeros(len(SSD_LAT_OPS), dtype=torch.int64, device=dev)
+    sink = torch.zeros(32, dtype=dtype, device=dev)
+    for _ in range(2):  # the second launch runs from a warm instruction cache
+        err = lib.yfm_ssd_latencies(0 if dtype == torch.float32 else 1, out.data_ptr(),
+                                    sink.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"latency probe launch failed: cudaError {err}")
+    torch.cuda.synchronize()
+    return {name: v / 128 for name, v in zip(SSD_LAT_OPS, out.cpu().tolist())}
+
+
+def ssd_chain_counts(spec):
+    """The dependent path of one observed step of the score-driven recursion
+    and of one unobserved step, by operation class, with every per-maturity
+    operation on its own lane and every sum over maturities a 5-level
+    shuffle tree (add and mul each counted once where they chain).  An
+    observed step's path is OLS on Z(γ_t) → the inner score → the γ step →
+    Z(γ_obs) → (AR(1)) ν + Bγ → Z(γ_next); the re-OLS and the loss feed only
+    the loss and β, which the next step's path does not wait for.
+
+    - OLS: the products (mul), five levels (shfl + add), the 3×3 Cholesky's
+      dependent l21, l22, l32, l33 (2 sqrt, 2 div) and the back-substitution
+      (4 div), ≈14 add/mul between them.
+    - neural build (transformed): tanh(W₁τ + b₁) (mul, add, tanh), W₂·h
+      (mul, add, add), the curvature transform's broadcast (shfl), slope
+      (add, div), r and r² (≈6 add/mul), Σr2² (five levels), √S/scale + ε
+      (sqrt, div, add) and r2/d (div).  λ: e^γ, e^{−λτ} (2 exp), z₂, z₃
+      (add, mul, div, add, add).
+    - neural score: v (mul, 3 add), ō (mul), the three rounds (five levels
+      each, the first two after a mul), the curvature adjoint between them
+      (div, ≈6 add/mul), the MLP parameter products (3 mul).  λ: v, the
+      score term (mul, add, mul) and one sum (five levels), ×(λ − 0.01).
+    - γ step: EWMA (3 mul, 3 add, 2 div, 1 sqrt) or plain (mul, add), then
+      one broadcast of the new γ (shfl); AR(1): ν + Bγ (mul, add)."""
+    neural = spec.family == "msed_neural"
+    ols = {"mul": 7, "add": 8 + 5, "shfl": 5, "div": 6, "sqrt": 2}
+    if neural:
+        build = {"mul": 6, "add": 8 + 5, "tanh": 1, "shfl": 1 + 5, "div": 3, "sqrt": 1}
+        score = {"mul": 10, "add": 6 + 15, "shfl": 15, "div": 1}
+    else:
+        build = {"exp": 2, "add": 3, "mul": 1, "div": 1}
+        score = {"mul": 4, "add": 4 + 5, "shfl": 5}
+    step = ({"mul": 3, "add": 3, "div": 2, "sqrt": 1, "shfl": 1} if spec.scale_grad
+            else {"mul": 1, "add": 1, "shfl": 1})
+    ar1 = not spec.random_walk
+    observed, unobserved = {}, {}
+    parts = [ols, score, step, build] + ([{"mul": 1, "add": 1}, build] if ar1 else [])
+    for part in parts:
+        for k, v in part.items():
+            observed[k] = observed.get(k, 0) + v
+    if ar1:
+        for part in ({"mul": 1, "add": 1}, build):
+            for k, v in part.items():
+                unobserved[k] = unobserved.get(k, 0) + v
+    return observed, unobserved
+
+
+def ssd_chain_ms(spec, data, latencies, clock_mhz, start=0, end=None):
+    """K4's latency-chain bound at one draw: the dependent path of every
+    step (``ssd_chain_counts``) at the measured cycles of each operation
+    class (``ssd_latencies``), over this panel's observed and unobserved
+    steps, at the card's maximum SM clock."""
+    N, T = data.shape
+    if end is None:
+        end = T
+    observed, unobserved = ssd_chain_counts(spec)
+    finite0 = torch.isfinite(data[0]).cpu()
+    n_obs = sum(1 for t in range(T - 1) if start <= t < end and bool(finite0[t]))
+
+    def cycles(counts):
+        return sum(v * latencies[k] for k, v in counts.items())
+
+    total = n_obs * cycles(observed) + (T - 1 - n_obs) * cycles(unobserved)
+    return total / (clock_mhz * 1e6) * 1e3, cycles(observed)
+
+
+def sass_loop_counts(lib_path, needle="ssd_loss_kernel"):
+    """SASS instructions of each compiled ``needle`` kernel in a library
+    (``cuobjdump -sass``): the whole function, and its step loop — the
+    instructions from the target of its widest backward branch to that
+    branch.  Keyed by the kernel's template arguments as they appear in its
+    mangled name; None when the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(_nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if needle not in name:
+            continue
+        addrs, labels, branches = [], {}, []
+        for line in block.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                labels[m.group(1)] = len(addrs)
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if not m:
+                continue
+            addrs.append(int(m.group(1), 16))
+            b = re.search(r"\bBRA(?:\.\w+)*\s+`?\(?(0x[0-9a-f]+|\.L_x_\d+)", m.group(2))
+            if b:
+                branches.append((len(addrs) - 1, b.group(1)))
+        index = {a: i for i, a in enumerate(addrs)}
+        span = 0
+        for i, target in branches:
+            j = labels.get(target) if target.startswith(".L") else index.get(int(target, 16))
+            if j is not None and j <= i:
+                span = max(span, i - j + 1)
+        args = re.search(needle + r"I([fd])Lb([01])ELi(\d+)E(?:Lb([01])E)?", name)
+        key = name if args is None else (
+            f"{'f32' if args.group(1) == 'f' else 'f64'} "
+            f"{'neural' if args.group(2) == '1' else 'λ'} PL={args.group(3)}"
+            + ("" if args.group(4) is None else
+               (" AR(1)" if args.group(4) == "1" else " random walk")))
+        out[key] = {"instructions": len(addrs), "step_loop": span}
+    return out
+
+
+def _nvcc_path():
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    return _build._nvcc()
+
+
 @contextlib.contextmanager
 def timed_estimate_steps(optimize, fused_ssd):
     """Time the phases of ``estimate_steps`` inside the block: the grid
@@ -1214,6 +1399,22 @@ def sv_phases(yfm, dev, report):
         check(int(torch.isfinite(ref).sum()) == Dc - 2, f"{what}: a valid draw is not finite")
         close(got, ref, 1e-9, 0.0, f"1C {what}")
 
+    print("  above 1,024 slots (several slots a thread, state in scratch): AFNS5, D=16, "
+          "P=1152 and 2048 (2000 live), f64 kernel vs plain f64 at rtol 1e-9")
+    rng = np.random.default_rng(17)
+    pm = stationary_draws(spec64, base, 16, seed=4)
+    pm[3, spec64.layout["phi"][0]] = 1.5          # Φ₁₁ > 1: −inf
+    pm = torch.as_tensor(pm, device=dev, dtype=f64)
+    for Pm, live in ((1152, 1152), (2048, 2000)):
+        nzm = torch.as_tensor(rng.standard_normal((16, T_MONTHS - 1, Pm)), device=dev)
+        um = torch.as_tensor(rng.uniform(size=(16, T_MONTHS - 1)), device=dev)
+        got = bp(spec64, pm, panel64, nzm, um, n_particles=live)
+        ref = fused_pf.pf_loglik_batch_reference(spec64, pm, panel64, nzm, um,
+                                                 n_particles=live)
+        check(bool(got[3] == -math.inf) and int(torch.isfinite(ref).sum()) >= 14,
+              f"P={Pm}: the invalid draw must give −inf and the rest be finite")
+        close(got, ref, 1e-9, 0.0, f"P={Pm}, {live} live f64 kernel vs plain f64")
+
     # ---- 13. K5 timing ----------------------------------------------------------------
     begin_phase("[13] K5 timing (CUDA events), float32")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
@@ -1226,9 +1427,10 @@ def sv_phases(yfm, dev, report):
     u_sv = torch.as_tensor(rng.uniform(size=T_MONTHS - 1), device=dev, dtype=f32)
     for label, Dt, Pt, live in (("config 3", 1000, 1024, 1000),
                                 (f"estimate_sv step, {S_sv} starts", S_sv, P_sv, n_sv),
-                                (f"estimate_sv simplex, {S_sv}x49", S_sv * 49, P_sv, n_sv)):
+                                (f"estimate_sv simplex, {S_sv}x49", S_sv * 49, P_sv, n_sv),
+                                ("above 1,024 slots", 64, 2048, 2000)):
         pt = torch.as_tensor(stationary_draws(spec, base, Dt, seed=2), device=dev, dtype=f32)
-        if Pt == 1024:
+        if Pt >= 1024:
             nzt = torch.randn((Dt, T_MONTHS - 1, Pt), device=dev, dtype=f32,
                               generator=torch.Generator(device=dev).manual_seed(3))
             ut = torch.rand((Dt, T_MONTHS - 1), device=dev, dtype=f32,
@@ -1339,41 +1541,15 @@ def sv_phases(yfm, dev, report):
         "bound_by": head["bound_by"], "library_ms": None, "shapes": shapes}
 
 
-def main(json_path=None) -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
-    try:
-        import yieldfactormodels_jl_tpu_torch as yfm
-    except ImportError as e:
-        print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
-        return 2
+def kalman_phases(yfm, dev, report):
+    """Phases 2–8: K1–K3 on the Kalman main path, their checks and timing,
+    ``estimate`` and ``estimate_windows``.  Returns the kernels line's
+    entries of K1, K2f, K2b, K3f and K3b."""
     from yieldfactormodels_jl_tpu_torch.estimation import optimize
-    from yieldfactormodels_jl_tpu_torch.ops import _build, fused_kf
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf
     from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # full-precision references
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
-    kind = torch.cuda.get_device_name(0)
-    card = nvidia_smi("name,power.limit")
-    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
-    print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    # ---- 1. build ------------------------------------------------------------
-    begin_phase("[1] build")
-    t0 = time.perf_counter()
-    _build.build_all()
-    for name in _build.KERNELS:
-        _build.load(name)
-    report["build_s"] = time.perf_counter() - t0
-    print(f"  built {list(_build.KERNELS)} in {report['build_s']:.1f} s")
-    for name, log in _build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  {name}: {line.strip()}")
 
     # ---- 2. full width: the main path -----------------------------------------
     begin_phase("[2] full width: AFNS5, N=20, T=360")
@@ -1739,6 +1915,55 @@ def main(json_path=None) -> int:
         report["estimate_windows"][label] = windows_fit(yfm, optimize, label, s32, sim_np,
                                                         starts_np, ends)
 
+    head = shapes["1024"]
+    kernels = [{
+        "name": "K1 fused_kf", "route": "cuda",
+        "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_kf.cu",
+        "replaces": "yieldfactormodels_jl_tpu/ops/pallas_kf.py:102",
+        "launches": launches, "max_abs_err": max(errs),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "shapes": shapes,
+    }]
+    pairs = (("K2f", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:127", "AFNS5"),
+             ("K2b", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:181", "AFNS5"),
+             ("K3f", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:414", "TVλ"),
+             ("K3b", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:452", "TVλ"))
+    for name, replaces, fit in pairs:
+        errs_k = grad_errs[name]
+        err = max(errs_k) if name.endswith("f") else max(e["max_abs_err"] for e in errs_k)
+        if name.startswith("K2"):
+            k, by_shape = grad_shapes["1024"][name], {B: v[name] for B, v in grad_shapes.items()}
+        else:
+            k = tvl_shapes["1024 exact=False"][name]
+            by_shape = {key: v[name] for key, v in tvl_shapes.items()}
+        entry = {
+            "name": f"{name} fused_kf_grad", "route": "cuda",
+            "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_kf_grad.cu",
+            "replaces": replaces,
+            "launches": fits[fit]["counts"]["forward" if name.endswith("f") else "backward"],
+            "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+            "shapes": by_shape}
+        if name.endswith("b"):
+            entry["gradient_criterion"] = {
+                key: max(e[key] for e in errs_k)
+                for key in ("max_one_minus_cos", "max_norm_ratio_err")}
+            entry["f64_leaf_error_over_scale"] = max(grad_errs[name + "_leaves"])
+        kernels.append(entry)
+    return kernels
+
+
+def ssd_phases(yfm, dev, report):
+    """Phases 9–11: K4 against its plain version at full width and on the
+    edge cases, its timing and stage clocks, and ``estimate_steps`` on
+    config 6.  Returns K4's entry of the kernels line."""
+    from yieldfactormodels_jl_tpu_torch.estimation import optimize
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    f32, f64 = torch.float32, torch.float64
+
     # ---- 9. K4 at full width ---------------------------------------------------------
     from yieldfactormodels_jl_tpu_torch.models import api as tapi
     from yieldfactormodels_jl_tpu_torch.ops import fused_ssd
@@ -1838,6 +2063,46 @@ def main(json_path=None) -> int:
             plain_txt = "" if row["plain_ms"] is None else f", plain {row['plain_ms']:.1f} ms"
             print(f"  {code} B={B}: kernel {ms:.4f} ms ({B / (ms * 1e-3):.0f} evals/s), "
                   f"bound {bound_ms:.6f} ms ({bound_by}; {per_draw} flop/draw){plain_txt}")
+    # stage clocks at one draw (the clock build), the latency-chain bound
+    # from the measured latencies, and the step loop's SASS
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    lats = {dtype: ssd_latencies(dtype, dev) for dtype in (f32, f64)}
+    for dtype, lat in lats.items():
+        print(f"  latency probe {str(dtype)[6:]} (cycles an operation): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in lat.items()))
+    k4_stages = {}
+    for code, s64 in ssd_specs.items():
+        p1 = torch.as_tensor(ssd_draws(s64, ssd_nns_params(s64), 1, seed=1), device=dev)
+        for dtype in (f32, f64):
+            sd = dataclasses.replace(s64, dtype_name=str(dtype)[6:])
+            st = ssd_stage_clocks(fused_ssd, sd, p1.to(dtype), bpanel64.to(dtype))
+            chain, chain_cyc = ssd_chain_ms(sd, bpanel64, lats[dtype], clock_mhz)
+            inputs1 = fused_ssd.kernel_inputs(sd, p1.to(dtype), bpanel64.to(dtype), 0,
+                                              T_MONTHS)
+            ms1 = cuda_ms(lambda: fused_ssd.launch(inputs1), reps=20)
+            st.update({"chain_bound_ms": chain, "chain_cycles_observed_step": chain_cyc,
+                       "ms": ms1, "clock_mhz": clock_mhz})
+            k4_stages[f"{code} {str(dtype)[6:]}"] = st
+            cyc = st["cycles_per_step"]
+            print(f"  {code} {str(dtype)[6:]} B=1: {ms1:.4f} ms, chain bound {chain:.4f} ms "
+                  f"({chain_cyc:.0f} cycles an observed step); stage cycles a step: "
+                  + ", ".join(f"{k} {v:.0f}" for k, v in cyc.items())
+                  + f"; loop {st['loop_cycles_per_step']:.0f} a step "
+                  f"({st['loop_cycles_per_step'] * st['steps'] / (clock_mhz * 1e3):.4f} ms at "
+                  f"{clock_mhz:.0f} MHz), {st['ms_with_stamps']:.4f} ms with the stamps")
+            if dtype == f32:
+                k4_shapes[f"{code} 1"]["chain_bound_ms"] = chain
+    sass = sass_loop_counts(_build._lib_path("fused_ssd"))
+    if sass is None:
+        print("  SASS: no cuobjdump in this toolkit: not measured")
+    else:
+        for name, v in sass.items():
+            print(f"  SASS {name}: {v['instructions']} instructions, step loop {v['step_loop']}")
+    report["k4_stage_clocks"] = k4_stages
+    report["k4_latencies"] = {str(k): v for k, v in lats.items()}
+    report["k4_sass"] = sass
     report["k4_shapes"] = k4_shapes
     report["k4_determined"] = k4_counts
 
@@ -1913,54 +2178,60 @@ def main(json_path=None) -> int:
         "neldermead_s": phases["neldermead_s"], "neldermead_host_s": nm_host_s,
         "closed_form_s": phases["closed_s"], "verify_s": phases["verify_s"]}
 
-    k5 = sv_phases(yfm, dev, report)
-
-    head = shapes["1024"]
-    kernels = [{
-        "name": "K1 fused_kf", "route": "cuda",
-        "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_kf.cu",
-        "replaces": "yieldfactormodels_jl_tpu/ops/pallas_kf.py:102",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None, "shapes": shapes,
-    }]
-    pairs = (("K2f", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:127", "AFNS5"),
-             ("K2b", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:181", "AFNS5"),
-             ("K3f", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:414", "TVλ"),
-             ("K3b", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:452", "TVλ"))
-    for name, replaces, fit in pairs:
-        errs_k = grad_errs[name]
-        err = max(errs_k) if name.endswith("f") else max(e["max_abs_err"] for e in errs_k)
-        if name.startswith("K2"):
-            k, by_shape = grad_shapes["1024"][name], {B: v[name] for B, v in grad_shapes.items()}
-        else:
-            k = tvl_shapes["1024 exact=False"][name]
-            by_shape = {key: v[name] for key, v in tvl_shapes.items()}
-        entry = {
-            "name": f"{name} fused_kf_grad", "route": "cuda",
-            "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_kf_grad.cu",
-            "replaces": replaces,
-            "launches": fits[fit]["counts"]["forward" if name.endswith("f") else "backward"],
-            "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
-            "shapes": by_shape}
-        if name.endswith("b"):
-            entry["gradient_criterion"] = {
-                key: max(e[key] for e in errs_k)
-                for key in ("max_one_minus_cos", "max_norm_ratio_err")}
-            entry["f64_leaf_error_over_scale"] = max(grad_errs[name + "_leaves"])
-        kernels.append(entry)
     k4 = k4_shapes["1SSD-NNS 257"]
-    kernels.append({
+    return {
         "name": "K4 fused_ssd", "route": "cuda",
         "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_ssd.cu",
         "replaces": "yieldfactormodels_jl_tpu/ops/pallas_ssd.py:214",
         "launches": k4_launches, "max_abs_err": max(k4_errs),
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
-        "shapes": k4_shapes})
-    kernels.append(k5)
+        "shapes": k4_shapes}
+
+
+PHASE_GROUPS = ("kalman", "ssd", "sv")
+
+
+def main(json_path=None, only=PHASE_GROUPS) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import yieldfactormodels_jl_tpu_torch as yfm
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
+        return 2
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full-precision references
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    card = nvidia_smi("name,power.limit")
+    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- 1. build ------------------------------------------------------------
+    begin_phase("[1] build")
+    t0 = time.perf_counter()
+    _build.build_all()
+    for name in _build.KERNELS:
+        _build.load(name)
+    report["build_s"] = time.perf_counter() - t0
+    print(f"  built {list(_build.KERNELS)} in {report['build_s']:.1f} s")
+    for name, log in _build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  {name}: {line.strip()}")
+
+    kernels = []
+    if "kalman" in only:
+        kernels += kalman_phases(yfm, dev, report)
+    if "ssd" in only:
+        kernels.append(ssd_phases(yfm, dev, report))
+    if "sv" in only:
+        kernels.append(sv_phases(yfm, dev, report))
     report["kernels"] = kernels
     report["phase_start_s"] = dict(_PHASES)
     report["wall_s"] = time.perf_counter() - _T0
@@ -1982,4 +2253,12 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", metavar="PATH",
                     help="also write the full report (build, errors, timings) here")
-    sys.exit(main(ap.parse_args().json))
+    ap.add_argument("--only", default=",".join(PHASE_GROUPS),
+                    help="comma-separated phase groups to run after the build: "
+                         "kalman ([2]–[8]), ssd ([9]–[11]), sv ([12]–[14]); all by "
+                         "default")
+    args = ap.parse_args()
+    only = tuple(args.only.split(","))
+    if not set(only) <= set(PHASE_GROUPS):
+        ap.error(f"--only takes {PHASE_GROUPS}")
+    sys.exit(main(args.json, only))

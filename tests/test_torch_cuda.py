@@ -304,25 +304,35 @@ def _ssd_draws(spec, B, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("code", ["1SSD-NNS", "1RWSD-NNS", "SRWSD-NS"])
-def test_fused_ssd_matches_plain_version(card, code):
-    """K4 against its plain version on the same inputs: the float64 kernel
-    at rtol 1e-9 (the same arithmetic, sums over maturities in another
-    order), the float32 kernel against the plain float64 version at rtol
-    2e-2 (bench.py's bar for the float32 kernel); an interior NaN column
-    inside the window and an invalid draw give −inf.  The EWMA step of
-    1SSD-NNS divides each score component by its own running scale, which
-    hides a score that is off by a constant factor, so a plain-step neural
-    code (1RWSD-NNS) is held too."""
+@pytest.mark.parametrize("B", [1, 23, 64])
+@pytest.mark.parametrize("code", ["1SSD-NNS", "1RWSD-NNS", "SRWSD-NS", "SSD-NS"])
+def test_fused_ssd_matches_plain_version(card, code, B):
+    """K4 against its plain version on the same inputs, at the batches
+    ``estimate_steps`` gives it (one start, the 23-point simplex) and a
+    block: the float64 kernel at rtol 1e-9 (the same arithmetic, sums over
+    maturities in another order), the float32 kernel against the plain
+    float64 version at rtol 2e-2 (bench.py's bar for the float32 kernel); an
+    interior NaN column inside the window, an invalid draw and an exploding
+    SSD-NS draw (step size 20, persistence 0.5: −inf in both types under
+    nudges) give −inf.  The EWMA step of 1SSD-NNS divides each score
+    component by its own running scale, which hides a score that is off by a
+    constant factor, so a plain-step neural code (1RWSD-NNS) is held too."""
     from tests import oracle
     from yieldfactormodels_jl_tpu_torch.ops import fused_ssd
 
     rng = np.random.default_rng(0)
     s64, _ = P.create_model(code, MATS, float_type="float64")
     s32, _ = P.create_model(code, MATS)
-    B, T = 64, 60
-    p = _ssd_draws(s64, B, rng)
-    p[7] = np.nan
+    T = 60
+    p = _ssd_draws(s64, 64, rng)[:B]
+    minus_inf = []
+    if B > 7:
+        p[7] = np.nan
+        minus_inf.append(7)
+    if code == "SSD-NS" and B > 11:
+        p[11, s64.layout["A"][0]] = 20.0
+        p[11, s64.layout["B"][0]] = 0.5
+        minus_inf.append(11)
     data = oracle.simulate_dns_panel(rng, np.asarray(MATS), T=T)
     data[:, 40] = np.nan
     p, data = torch.as_tensor(p, device=card), torch.as_tensor(data, device=card)
@@ -333,13 +343,16 @@ def test_fused_ssd_matches_plain_version(card, code):
         torch.cuda.synchronize()
         assert fused_ssd.batched_loss.launches == launches + 2
         ref = fused_ssd.batched_loss_reference(s64, p, data, start, end).cpu().numpy()
-        assert got32.dtype == torch.float32 and ref[7] == -np.inf
-        np.testing.assert_array_equal(np.isfinite(got64.cpu().numpy()), np.isfinite(ref))
-        np.testing.assert_array_equal(np.isfinite(got32.cpu().numpy()), np.isfinite(ref))
+        got64, got32 = got64.cpu().numpy(), got32.cpu().numpy()
+        assert got32.dtype == np.float32
+        for i in minus_inf:
+            assert ref[i] == got64[i] == got32[i] == -np.inf
+        np.testing.assert_array_equal(np.isfinite(got64), np.isfinite(ref))
+        np.testing.assert_array_equal(np.isfinite(got32), np.isfinite(ref))
         fin = np.isfinite(ref)
-        assert fin.sum() == (B - 1 if end == 35 else 0)
-        np.testing.assert_allclose(got64.cpu().numpy()[fin], ref[fin], rtol=1e-9)
-        np.testing.assert_allclose(got32.double().cpu().numpy()[fin], ref[fin], rtol=2e-2)
+        assert fin.sum() == (B - len(minus_inf) if end == 35 else 0)
+        np.testing.assert_allclose(got64[fin], ref[fin], rtol=1e-9)
+        np.testing.assert_allclose(got32.astype(np.float64)[fin], ref[fin], rtol=2e-2)
 
 
 @pytest.mark.cuda
@@ -457,16 +470,27 @@ def test_fused_pf_float32_without_volatility_noise(card):
 
 
 @pytest.mark.cuda
-def test_fused_pf_refuses_more_slots_than_threads(card):
-    """One thread a slot: more than 1,024 slots raise before any launch (the
-    plain version on the CPU runs them)."""
+@pytest.mark.parametrize("slots", [1152, 2048])
+def test_fused_pf_runs_more_slots_than_threads(card, slots):
+    """Above 1,024 slots a thread runs several from the wrapper's scratch:
+    K5 in float64 against its plain version at rtol 1e-9, equal −Inf sets,
+    with a NaN column, dead slots and resampling at every step (ESS
+    threshold 1.5)."""
     from yieldfactormodels_jl_tpu_torch.ops import fused_pf
 
-    s64, batch, data, nz, u = _pf_case(card, D=2, T=8, P_slots=1152)
-    launches = fused_pf.pf_loglik_batch.launches
-    with pytest.raises(ValueError, match="at most 1024 particle slots"):
-        fused_pf.pf_loglik_batch(s64, batch, data, nz, u)
-    assert fused_pf.pf_loglik_batch.launches == launches
+    s64, batch, data, nz, u = _pf_case(card, D=3, T=24, P_slots=slots)
+    data[:, 9] = float("nan")
+    batch[2, 23] = 1.5  # Φ₁₁ > 1
+    for kw in ({}, {"n_particles": slots - 100, "ess_threshold": 1.5}):
+        launches = fused_pf.pf_loglik_batch.launches
+        got = fused_pf.pf_loglik_batch(s64, batch, data, nz, u, **kw)
+        torch.cuda.synchronize()
+        assert fused_pf.pf_loglik_batch.launches == launches + 1
+        ref = fused_pf.pf_loglik_batch_reference(s64, batch, data, nz, u, **kw)
+        got, ref = got.cpu().numpy(), ref.cpu().numpy()
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+        assert got[2] == -np.inf and np.isfinite(ref[:2]).all()
+        np.testing.assert_allclose(got[:2], ref[:2], rtol=1e-9)
 
 
 @pytest.mark.cuda

@@ -15,7 +15,14 @@ JAX package, on the CPU (the kernels' plain versions run there).
   parameters within 1e-5.  Optimizer parity is tolerance-based: the port's
   Nelder–Mead values come from the kernel's plain version, JAX's from its
   scan, two float64 evaluations of one loss.
+- A ``detach_inner_beta=False`` spec (SSD-NS, 8 maturities, T = 40, a
+  random-walk panel, every start parameter 0.5): K4 refuses it, so the
+  grid and the Nelder–Mead blocks run the plain scan, as JAX's run its
+  vmapped scan; the same (15, 1) start matrix, and ``estimate_steps`` at
+  the bar above.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -163,3 +170,47 @@ def test_estimate_steps_refusals(yields_panel, monkeypatch):
         monkeypatch.delenv("YFM_MSED_CLOSED")
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             P.estimate_steps(sd, data, p, groups, max_group_iters=1)
+
+
+def _exact_inner_beta_case():
+    """The SSD-NS spec with ``detach_inner_beta=False`` in both packages,
+    8 maturities 3–120 months, a random-walk panel (N, 40) and every start
+    parameter 0.5."""
+    mats = tuple(np.array([3, 6, 12, 24, 36, 60, 84, 120]) / 12.0)
+    rng = np.random.default_rng(0)
+    data = 4.0 + np.cumsum(0.05 * rng.standard_normal((len(mats), 40)), axis=1)
+    js, _ = J.create_model("SSD-NS", mats, float_type="float64")
+    ts, _ = P.create_model("SSD-NS", mats, float_type="float64")
+    js = dataclasses.replace(js, detach_inner_beta=False)
+    ts = dataclasses.replace(ts, detach_inner_beta=False)
+    return js, ts, data, np.full(ts.n_params, 0.5)
+
+
+def test_try_initializations_runs_exact_inner_beta_specs():
+    js, ts, data, p = _exact_inner_beta_case()
+    with pytest.raises(ValueError, match="detached"):
+        fused_ssd.batched_loss(ts, p[None], data, device=CPU)
+    calls = fused_ssd.batched_loss_reference.calls
+    got = P.try_initializations(ts, p, data, device=CPU)
+    assert fused_ssd.batched_loss_reference.calls == calls  # the scan, not K4
+    want = jopt.try_initializations(js, p, data)
+    assert got.shape == want.shape == (15, 1)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_estimate_steps_runs_exact_inner_beta_specs():
+    js, ts, data, p = _exact_inner_beta_case()
+    groups = list(J.models.api.get_param_groups(js, None))
+    budgets = {"1": ("neldermead", dict(max_iters=10)),
+               "2": ("lbfgs", dict(max_iters=8, g_tol=1e-6, f_abstol=1e-6))}
+    init_j, ll_j, best_j, conv_j = jopt.estimate_steps(js, data, p[:, None], groups,
+                                                      max_group_iters=1, optimizers=budgets)
+    calls = fused_ssd.batched_loss_reference.calls
+    init_t, ll_t, best_t, conv_t = P.estimate_steps(ts, data, p[:, None], groups,
+                                                    max_group_iters=1, optimizers=budgets,
+                                                    device=CPU)
+    assert fused_ssd.batched_loss_reference.calls == calls
+    np.testing.assert_allclose(init_t, np.asarray(init_j), rtol=1e-12)
+    np.testing.assert_allclose(ll_t, ll_j, rtol=1e-6)
+    np.testing.assert_allclose(best_t, np.asarray(best_j), rtol=1e-5, atol=1e-9)
+    assert tuple(conv_t) == tuple(conv_j)

@@ -371,11 +371,22 @@ def _finite_objective(spec: ModelSpec, data, raw_params, start, end,
     return torch.where(torch.isfinite(v), v, torch.full_like(v, penalty))
 
 
+def _msed_batch_loss(spec: ModelSpec, cons, data, start, end):
+    """(B,) score-driven losses of constrained draws: K4 (its plain version
+    on the CPU) for the detached-β̄ score it implements; the reference's own
+    scan over the draw axis for a ``detach_inner_beta=False`` spec, as the
+    JAX package sends such specs to its vmapped scan."""
+    if spec.detach_inner_beta:
+        return fused_ssd.batched_loss(spec, cons, data, start, end)
+    return score_driven.get_loss(spec, cons, data, start, end)
+
+
 def try_initializations(spec: ModelSpec, best_params, data, max_tries: int = 0,
                         start=0, end=None, device=None):
     """A (P, S) matrix of constrained starting points.  For a score-driven
     spec: ``best_params`` and the A×B guess grid (256 candidates for
-    1SSD-NNS) in ONE call of the score-driven value kernel, and the best
+    1SSD-NNS) in ONE call of the score-driven value kernel (the plain scan
+    for a ``detach_inner_beta=False`` spec), and the best
     candidate as the single start; for a Kalman spec ``best_params``
     itself.  Numpy ``data`` goes to ``device`` (``None`` means CUDA)."""
     best_params = np.asarray(best_params, dtype=np.float64).reshape(-1)
@@ -394,7 +405,7 @@ def try_initializations(spec: ModelSpec, best_params, data, max_tries: int = 0,
     data = config.as_tensor(data, device, spec.dtype)
     if end is None:
         end = data.shape[1]
-    losses = fused_ssd.batched_loss(
+    losses = _msed_batch_loss(
         spec, torch.as_tensor(cands, dtype=spec.dtype, device=data.device),
         data, start, end).double().cpu().numpy()
     best = int(np.nanargmax(np.where(np.isfinite(losses), losses, -np.inf)))
@@ -403,7 +414,8 @@ def try_initializations(spec: ModelSpec, best_params, data, max_tries: int = 0,
 
 def _neldermead_group(spec: ModelSpec, X, inds, opts, data, start, end):
     """All starts' Nelder–Mead over the group ``inds`` in lockstep; every
-    candidate batch is one K4 call (its plain version on the CPU), the
+    candidate batch is one K4 call (its plain version on the CPU; the plain
+    scan for a ``detach_inner_beta=False`` spec), the
     objective −loss with non-finite values clamped to the penalty.
     Returns (X', f (S,))."""
     S, Pn = X.shape
@@ -413,8 +425,8 @@ def _neldermead_group(spec: ModelSpec, X, inds, opts, data, start, end):
         K = Xs.shape[1]
         F = X[:, None, :].expand(S, K, Pn).clone()
         F[:, :, idx] = Xs
-        v = -fused_ssd.batched_loss(spec, transform_params(spec, F.reshape(S * K, Pn)),
-                                    data, start, end)
+        v = -_msed_batch_loss(spec, transform_params(spec, F.reshape(S * K, Pn)),
+                              data, start, end)
         return torch.where(torch.isfinite(v), v, torch.full_like(v, PENALTY)).reshape(S, K)
 
     x, f, _ = nelder_mead_batched(batch_fun, X[:, idx], max_iters=opts["max_iters"],
@@ -609,8 +621,8 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
                 aborted = aborted | (obj_broken & ~done)
             active = ~done
             iters_done[active] = it + 1
-            lls = fused_ssd.batched_loss(spec, transform_params(spec, X), data, start,
-                                         end).double().cpu().numpy()
+            lls = _msed_batch_loss(spec, transform_params(spec, X), data, start,
+                                   end).double().cpu().numpy()
             hit_tol = np.abs(lls - prev_ll) < tol
             converged |= active & hit_tol & ~aborted
             done = done | (active & (hit_tol | aborted))

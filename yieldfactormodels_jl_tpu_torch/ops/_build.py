@@ -42,9 +42,17 @@ KERNELS = {
     "fused_ssd": ("fused_ssd.cu", {
         "yfm_fused_ssd": [ctypes.c_int] * 8 + [ctypes.c_double] * 4
                          + [ctypes.c_void_p] * 5}, ("-fmad=false",)),
+    # K4 again with clock64() stamps between the stages of a step and a
+    # latency probe: chip_smoke.py's stage breakdown loads it, batched_loss
+    # never does
+    "fused_ssd_clocks": ("fused_ssd.cu", {
+        "yfm_fused_ssd_clocks": [ctypes.c_int] * 8 + [ctypes.c_double] * 4
+                                + [ctypes.c_void_p] * 6,
+        "yfm_ssd_latencies": [ctypes.c_int] + [ctypes.c_void_p] * 3},
+        ("-fmad=false", "-DYFM_SSD_CLOCKS")),
     "fused_pf": ("fused_pf.cu", {
         "yfm_fused_pf": [ctypes.c_int] * 8 + [ctypes.c_longlong] * 4
-                        + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 6}),
+                        + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 7}),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

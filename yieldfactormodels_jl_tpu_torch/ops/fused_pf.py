@@ -3,7 +3,8 @@
 Counterpart of ``yieldfactormodels_jl_tpu/ops/pallas_pf.py``.  The kernel,
 ``csrc/fused_pf.cu``, replaces the Pallas TPU kernel ``pallas_pf._kernel``:
 ``ops/particle.particle_filter_loglik`` in its common-noise mode for a batch
-of D draws, one thread block a draw and one thread a particle slot.
+of D draws, one thread block a draw and one thread a particle slot (above
+1,024 slots, several slots a thread).
 
 ``pf_loglik_batch`` takes (D, n_params) *constrained* draws, an (N, T) panel
 and the noise arrays ``normals`` (D, T−1, P) and ``uniforms`` (D, T−1), P a
@@ -30,7 +31,7 @@ from ._build import load
 from .particle import _filter, _measurement, factored_init
 
 _LANE = 128
-_MAX_SLOTS = 1024  # one thread a slot, one block a draw
+_BLOCK_SLOTS = 1024  # above this many slots a thread runs several, from scratch
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
@@ -113,15 +114,18 @@ reference.calls = 0
 
 def launch(inputs: KernelInputs) -> torch.Tensor:
     """One launch of the CUDA kernel on PyTorch's current stream; returns the
-    (D,) logliks with the ``fac_ok`` sentinel applied.  Raises for more than
-    1024 slots and if the launch is refused."""
+    (D,) logliks with the ``fac_ok`` sentinel applied.  Above 1,024 slots it
+    allocates the kernel's state scratch, (D, 2·RW + 2, P) with RW = Ms +
+    Ms(Ms+1)/2 + 1.  Raises if the launch is refused."""
     out = inputs.out
     D, npar = inputs.rows.shape
     T, N = inputs.panel.shape
     P = inputs.normals.shape[-1]
-    if P > _MAX_SLOTS:
-        raise ValueError(f"the fused PF kernel runs at most {_MAX_SLOTS} particle slots; "
-                         f"got {P}")
+    Ms = inputs.Ms
+    scratch = None
+    if P > _BLOCK_SLOTS:
+        rw = Ms + Ms * (Ms + 1) // 2 + 1
+        scratch = torch.empty((D, 2 * rw + 2, P), dtype=out.dtype, device=out.device)
     nz, us = inputs.normals, inputs.uniforms
     lib = load("fused_pf")
     with torch.cuda.device(out.device):
@@ -132,7 +136,7 @@ def launch(inputs: KernelInputs) -> torch.Tensor:
             ctypes.c_double(inputs.ess_threshold * inputs.n_eff),
             ctypes.c_double(-math.log(float(inputs.n_eff))),
             inputs.rows.data_ptr(), inputs.panel.data_ptr(), nz.data_ptr(), us.data_ptr(),
-            out.data_ptr(), stream)
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_pf kernel launch failed: cudaError {err}")
     pf_loglik_batch.launches += 1
@@ -182,8 +186,8 @@ def pf_loglik_batch(spec: ModelSpec, params_batch, data, normals, uniforms,
     """SV marginal loglik for a batch of draws, (D,), in the spec's float type.
 
     ``normals`` (D, T−1, P) / ``uniforms`` (D, T−1) are the common-noise
-    arrays (P a multiple of 128, on the card at most 1024; an expanded draw
-    axis is read in place).  ``n_particles`` ≤ P live slots (default P): the run equals
+    arrays (P a multiple of 128; an expanded draw axis is read in place).
+    ``n_particles`` ≤ P live slots (default P): the run equals
     the ``n_particles``-particle filter fed ``normals[..., :n_particles]``.
     ``sv_phi``/``sv_sigma``: scalars or per-draw (D,) vectors.  The −Inf
     sentinel covers failed factorizations and non-finite paths.  Numpy input

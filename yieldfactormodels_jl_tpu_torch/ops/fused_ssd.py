@@ -2,12 +2,13 @@
 
 Counterpart of ``yieldfactormodels_jl_tpu/ops/pallas_ssd.py``.  The kernel,
 ``csrc/fused_ssd.cu``, replaces the Pallas TPU kernel ``pallas_ssd._kernel``:
-the whole T-step score-driven pass of one parameter draw per warp, lane i
-holding maturity i, with the inner score the hand-derived reverse sweep
-through the loading build (MLP chain rule and the shape-transform adjoints,
-or the analytic dz/dλ of the λ family), 3×3 Cholesky OLS with the
-plain-then-ridge select, EWMA or plain γ steps, AR(1) or random-walk γ
-dynamics and the −‖y_{t+1} − ŷ‖² window sum.  Unpacking stays a batched
+the whole T-step score-driven pass of one parameter draw on two warps, lane
+i holding maturity i — a chain warp for the γ recursion, with the inner
+score the hand-derived reverse sweep through the loading build (MLP chain
+rule and the shape-transform adjoints, or the analytic dz/dλ of the λ
+family), 3×3 Cholesky OLS with the plain-then-ridge select, EWMA or plain γ
+steps and AR(1) or random-walk γ dynamics, and a helper warp for the
+re-OLS, β and the −‖y_{t+1} − ŷ‖² window sum.  Unpacking stays a batched
 tensor op outside the kernel, as in the JAX package.
 
 ``batched_loss(spec, params_batch, data, start, end)`` takes a (B, n_params)
