@@ -127,22 +127,33 @@ Phases (any failure raises and the script exits non-zero):
     96 live of 128 slots, per-draw (φ_h, σ_h); two invalid draws in each
     (Φ₁₁ > 1 and σ² < 0) give −inf.  And at phase 14's shapes (D=392,
     P=256, 200 live, one noise pair shared by every draw as an expanded
-    view): float64 at rtol 1e-9, float32 by the paired criterion.  And
+    view): float64 at rtol 1e-9, float32 by the paired criterion; there
+    the cluster launch (a draw over a thread-block cluster) against the
+    block launch bit for bit (torch.equal) at D=8 and D=392, float32 and
+    float64, and on every "1C" edge case (float64, also against the plain
+    version at rtol 1e-9) and its −inf draws in float32.  And
     above 1,024 slots (several slots a thread, their state in the wrapper's
     scratch): AFNS5 at full width, D=16, P=1152 and 2048 (2000 live),
     float64 at rtol 1e-9 with an invalid draw −inf.
 13. K5 timing — CUDA events, float32: config 3 (D=1000, P=1024, 1000
     live), the batches of phase 14's search (8 and 8×49 draws, P=256,
-    200 live, on one shared noise pair) and D=64 at P=2048 (2000 live);
-    the plain version once at config 3; the bound from the operation count
-    of these inputs.
+    200 live, on one shared noise pair) and D=64 at P=2048 (2000 live),
+    each layout that takes the shape in turns (block, cluster, block,
+    cluster), and the layout the kernel picks; the plain version once at
+    config 3; the bound from the operation count of these inputs.  Then,
+    at config 3 and D=8, the cycles a step by stage from the clock build
+    (``fused_pf_clocks``; in the cluster layout the chain and helper warps
+    apart), the latency-chain bound from the probes' latencies, and the
+    SASS instruction counts of each instance and its step loop.
 14. ``estimate_sv`` — AFNS5, N=20, T=360, 8 stationary starts jittered from
     bench's AFNS5 point, 200 particles, max_iters=200, with (φ_h, σ_h)
     fixed (twice, from generators seeded alike: the same result bit for
     bit) and searched, each with the launch counts set to 0 just before
     it: K5 ≥ 1, its plain version 0; finite, the best ll at least the best
-    start's on the same noise, (φ_h, σ_h) in range; the wall and K5's share
-    of it.  Then "1C" in float64 (T=120, 2 starts, 128 particles,
+    start's on the same noise, (φ_h, σ_h) in range; the layout of each
+    batch; the ll, iterations, launches by batch and best parameters equal
+    to the block kernel's recorded result (``PARENT_SV``) bit for bit; the
+    wall and K5's share of it.  Then "1C" in float64 (T=120, 2 starts, 128 particles,
     max_iters=30) on the card against the same call on the CPU: the same
     best start, ll at rtol 1e-8, the same iterations.
 
@@ -157,6 +168,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -1119,6 +1131,12 @@ def sass_loop_counts(lib_path, needle="ssd_loss_kernel"):
             if j is not None and j <= i:
                 span = max(span, i - j + 1)
         args = re.search(needle + r"I([fd])Lb([01])ELi(\d+)E(?:Lb([01])E)?", name)
+        pf = re.search(r"(fused_pf\w*?_kernel)I([fd])Li(\d+)E(?:Li(\d+)E)?", name)
+        if args is None and pf is not None:
+            out[f"{pf.group(1)} {'f32' if pf.group(2) == 'f' else 'f64'} Ms={pf.group(3)}"
+                + ("" if pf.group(4) is None else f" {pf.group(4)}")] = {
+                    "instructions": len(addrs), "step_loop": span}
+            continue
         key = name if args is None else (
             f"{'f32' if args.group(1) == 'f' else 'f64'} "
             f"{'neural' if args.group(2) == '1' else 'λ'} PL={args.group(3)}"
@@ -1289,14 +1307,19 @@ def pf_distribution(got, ref, got0, ref0, what):
 @contextlib.contextmanager
 def timed_pf_launches(fused_pf):
     """CUDA events around every K5 launch inside the block; yields the list
-    of (draws, start event, stop event)."""
+    of (draws, start event, stop event).  ``timed_pf_launches.layouts``
+    gets the layout K5 picked for each batch size."""
     events = []
     launch = fused_pf.launch
+    timed_pf_launches.layouts = {}
 
-    def timed(inputs):
+    def timed(inputs, **kw):
+        D = inputs.rows.shape[0]
+        if D not in timed_pf_launches.layouts:
+            timed_pf_launches.layouts[D] = fused_pf.layout_of(inputs)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = launch(inputs)
+        out = launch(inputs, **kw)
         e1.record()
         events.append((inputs.rows.shape[0], e0, e1))
         return out
@@ -1306,6 +1329,164 @@ def timed_pf_launches(fused_pf):
         yield events
     finally:
         fused_pf.launch = launch
+
+
+#: K5's layouts that [13] times (the cluster one takes P ≤ 256 slots), and
+#: the shapes whose stage clocks it takes
+K5_LAYOUTS = ("block", "cluster")
+K5_STAGE_SHAPES = ("config 3", "estimate_sv step, 8 starts")
+#: estimate_sv's results in [14] from the block kernel before the cluster
+#: layout existed, on an H100: the ll's float.hex(), the iterations of each start, the K5
+#: launches by batch size and the first 16 hex digits of the best
+#: parameters' sha256 (float32 bytes); [14] must repeat them bit for bit
+PARENT_SV = {
+    label: {"ll": ll, "iters": [200] * 8, "launches_by_batch": {8: 400, D: 1},
+            "best_sha256": sha}
+    for label, ll, D, sha in (
+        ("fixed (φ_h, σ_h)", "-0x1.1342d20000000p+16", 392, "e149c8ca85c0797d"),
+        ("fixed, again", "-0x1.1342d20000000p+16", 392, "e149c8ca85c0797d"),
+        ("(φ_h, σ_h) searched", "-0x1.5215320000000p+15", 408, "28111e175ee49c9f"))}
+def pf_layouts_equal(fused_pf, spec, params, data, normals, uniforms, n_eff, what,
+                     sv_phi=0.95, sv_sigma=0.2, ess_threshold=0.5, n_particles=None):
+    """K5's cluster launch against its block launch on the same inputs, bit
+    for bit (torch.equal: the same −inf draws and every finite bit); returns
+    the cluster launch's logliks."""
+    inputs = fused_pf.kernel_inputs(spec, params, data, normals, uniforms, n_eff, sv_phi,
+                                    sv_sigma, ess_threshold)
+    block = fused_pf.launch(inputs, layout="block")
+    cluster = fused_pf.launch(inputs, layout="cluster")
+    n_diff = int((block != cluster).sum())
+    check(torch.equal(block, cluster), f"{what}: the cluster launch differs from the block "
+          f"launch on {n_diff} of {block.numel()} draws")
+    print(f"  {what}: cluster == block bit for bit on {block.numel()} draws "
+          f"({int(torch.isinf(block).sum())} −inf)")
+    return cluster
+
+
+#: K5's stage clocks, in the order of fused_pf.cu's Stage enum
+PF_STAGES = ("updates", "propagate", "barrier", "max", "sum", "ess", "scan", "search",
+             "gather", "loop_top")
+#: the stages that run on contributing / resampling steps alone, averaged over those
+PF_CONTRIB_STAGES, PF_RESAMPLE_STAGES = ("ess",), ("scan", "search", "gather")
+#: operation classes of fused_pf.cu's latency probe, in its LatOp order
+PF_LAT_OPS = ("log_add", "shared_load", "remote_load", "cluster_barrier")
+
+
+def pf_stage_clocks(fused_pf, inputs, layout, reps=3):
+    """K5's cycles by stage for draw 0 (the clock build, ``fused_pf_clocks``:
+    the same source with clock64() stamps between a step's stages, thread 0
+    of draw 0; for the cluster layout its chain warp's, and its helper
+    warp's apart), from the last of ``reps`` launches under ``layout``:
+    cycles a step averaged over the T−1 steps (the ESS over the contributing
+    steps, the scan, search and gather over the resampling steps), the
+    counts of contributing and resampling steps, the SMs of draw 0's CTAs,
+    and the launch's time with the stamps on."""
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    lib = _build.load("fused_pf_clocks")
+    n_st = len(PF_STAGES)
+    helper0 = n_st + 4 + 16
+    clocks = torch.full((helper0 + n_st + 1,), -1, dtype=torch.int64,
+                        device=inputs.out.device)
+    code = {"block": 1, "cluster": 2}[layout]
+    args = fused_pf.launch_args(inputs, fused_pf._scratch(inputs))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.yfm_fused_pf_clocks(*args, code, clocks.data_ptr(), stream)
+        check(err == 0, f"K5 clock build launch failed: cudaError {err}")
+
+    ms = cuda_ms(run, reps=reps, warmup=1)
+    c = clocks.cpu().tolist()
+    steps, contrib, resampled, loop = c[n_st:n_st + 4]
+    def per(first):
+        out = {}
+        for q, name in enumerate(PF_STAGES):
+            n = (contrib if name in PF_CONTRIB_STAGES else
+                 resampled if name in PF_RESAMPLE_STAGES else steps)
+            out[name] = c[first + q] / max(n, 1)
+        return out
+
+    per_step = per(0)
+    helper = None
+    if layout == "cluster":
+        helper = per(helper0)
+        helper["waiting"] = c[helper0 + n_st] / steps
+    return {"cycles_per_step": per_step, "loop_cycles_per_step": loop / steps,
+            "helper_cycles_per_step": helper, "steps": steps, "contributing_steps": contrib,
+            "resampling_steps": resampled, "sms": [x for x in c[n_st + 4:helper0] if x >= 0],
+            "ms_with_stamps": ms}
+
+
+def pf_latencies(dtype, dev):
+    """Cycles of one dependent operation of each PF_LAT_OPS class on one
+    warp, from the K5 clock build's probe (128 in a chain, in one cluster of
+    8 one-warp CTAs); "log_add" is a log and the add after it."""
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    lib = _build.load("fused_pf_clocks")
+    out = torch.zeros(len(PF_LAT_OPS), dtype=torch.int64, device=dev)
+    sink = torch.zeros(256, dtype=torch.int32, device=dev)
+    for _ in range(2):  # the second launch runs from a warm instruction cache
+        err = lib.yfm_pf_latencies(0 if dtype == torch.float32 else 1, out.data_ptr(),
+                                   sink.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"K5 latency probe launch failed: cudaError {err}")
+    torch.cuda.synchronize()
+    return {name: v / 128 for name, v in zip(PF_LAT_OPS, out.cpu().tolist())}
+
+
+def pf_chain_counts(Ms, P, n_live):
+    """The dependent path of one particle-step of the SV filter by operation
+    class, every particle on its own thread and every sum over the P slots
+    a log2(P)-level tree (shfl + the op at each level), a fused multiply-add
+    counted as one mul.  Returns the counts of an observed update, the
+    propagation, the weights, a contributing step's ESS and a resampling.
+
+    - update (the next update waits for S): Sᵀz (Ms), Σφ² + r (Ms + 1), the
+      pivot guard (1 add), √f, α = 1/(f + √r√f) (1 mul, 1 div), the
+      downdate (1 mul); β and the log-likelihood term run beside it.
+    - propagation: the blend (add, mul), A = ΦS (Ms), AAᵀ + Ω (Ms), then the
+      Cholesky's columns in turn: the last earlier-column product (Ms − 1
+      mul), the floor (add) and √ of each pivot, each column's division
+      (Ms − 1).
+    - weights: the max tree (a NaN-propagating max is two add-class
+      operations), the guard and the shift, exp, the Σ tree, the log and
+      two adds.
+    - ESS (contributing step): exp of the weight, its square, the Σ tree,
+      1/Σ and the gate's compare.
+    - resampling: the scan tree, the cumulative add, the binary search
+      (⌈log2 n_live⌉ dependent shared loads, each with its compare) and the
+      gather's load."""
+    lv = max(1, math.ceil(math.log2(P)))
+    search = max(1, math.ceil(math.log2(n_live)))
+    update = {"mul": 2 * Ms + 3, "add": 2, "sqrt": 1, "div": 1}
+    propagate = {"add": 1 + Ms, "mul": 3 * Ms, "sqrt": Ms, "div": Ms - 1}
+    weights = {"shfl": 2 * lv, "add": 3 * lv + 4, "exp": 1, "log": 1}
+    ess = {"exp": 1, "mul": 1, "shfl": lv, "add": lv + 1, "div": 1}
+    resample = {"shfl": lv, "add": lv + 1 + search, "shared": search + 1}
+    return update, propagate, weights, ess, resample
+
+
+def pf_chain_ms(Ms, N, P, n_live, finite_cols, n_resample, lat, clock_mhz):
+    """K5's latency-chain bound for one draw at the measured cycles of each
+    operation class — add, mul, div, sqrt, exp and shfl from K4's probe
+    (``ssd_latencies``), log (less an add) and the shared load from K5's
+    (``pf_latencies``) — at the card's maximum SM clock.  A step's path is
+    its N updates (on an observed column) and the propagation; the weights
+    and the ESS run beside the propagation, and on a resampling step the
+    scan, search and gather follow the later of the two.  ``n_resample``
+    resampling steps (the clock build's count on draw 0).  Returns (ms,
+    cycles of an observed step, of a resampling step's addition)."""
+    update, propagate, weights, ess, resample = pf_chain_counts(Ms, P, n_live)
+
+    def cycles(counts):
+        return sum(v * lat[k] for k, v in counts.items())
+
+    steps, obs = len(finite_cols), int(sum(finite_cols))
+    step = cycles(propagate)
+    extra = max(0.0, cycles(weights) + cycles(ess) - step) + cycles(resample)
+    total = steps * step + obs * N * cycles(update) + n_resample * extra
+    return total / (clock_mhz * 1e6) * 1e3, step + N * cycles(update), extra
 
 
 def sv_phases(yfm, dev, report):
@@ -1361,6 +1542,13 @@ def sv_phases(yfm, dev, report):
     close(bp(spec64, *args_e, n_particles=200), ref_e, 1e-9, 0.0,
           "shared noise f64 kernel vs plain f64")
     args_e32 = tuple(x.float() for x in args_e)
+    print("  the cluster launch (a draw over a thread-block cluster) against the block "
+          "launch, bit for bit: D=8 and 392, P=256, 200 live, f32 and f64")
+    for Dl in (8, 392):
+        for sp, args in ((spec64, args_e), (spec, args_e32)):
+            pe_, panel_, nz_, u_ = args
+            pf_layouts_equal(fused_pf, sp, pe_[:Dl], panel_, nz_[:Dl], u_[:Dl], 200,
+                             f"D={Dl} {str(pe_.dtype)[6:]}")
     pf_errs.append(pf_distribution(
         bp(spec, *args_e32, n_particles=200), ref_e,
         bp(spec, *args_e32, n_particles=200, sv_sigma=0.0),
@@ -1398,6 +1586,15 @@ def sv_phases(yfm, dev, report):
               f"{what}: the invalid draws must give −inf, got {g[:2].tolist()}")
         check(int(torch.isfinite(ref).sum()) == Dc - 2, f"{what}: a valid draw is not finite")
         close(got, ref, 1e-9, 0.0, f"1C {what}")
+        clus = pf_layouts_equal(fused_pf, dns64, pc, data, nzc, u, kw.get("n_particles", Pc),
+                                f"1C {what}, f64", **kw)
+        close(clus, ref, 1e-9, 0.0, f"1C {what}, the cluster launch")
+    print("  \"1C\" −Inf draws through both launches, f32: σ² < 0 (every step −Inf) and "
+          "Φ₁₁ > 1")
+    pc32 = pc.float()
+    got = pf_layouts_equal(fused_pf, yfm.create_model("1C", MATURITIES)[0], pc32,
+                           dpanel64.float(), nzc.float(), uc.float(), Pc, "1C f32")
+    check(bool((got[:2] == -math.inf).all()), f"1C f32: the invalid draws gave {got[:2]}")
 
     print("  above 1,024 slots (several slots a thread, state in scratch): AFNS5, D=16, "
           "P=1152 and 2048 (2000 live), f64 kernel vs plain f64 at rtol 1e-9")
@@ -1421,7 +1618,7 @@ def sv_phases(yfm, dev, report):
     panel32 = panel64.float()
     finite_cols = torch.isfinite(panel32).all(0).tolist()[:T_MONTHS - 1]
     rng = np.random.default_rng(14)
-    shapes = {}
+    shapes, stage_inputs = {}, {}
     P_sv, n_sv, S_sv = 256, 200, 8
     nz_sv = torch.as_tensor(rng.standard_normal((T_MONTHS - 1, P_sv)), device=dev, dtype=f32)
     u_sv = torch.as_tensor(rng.uniform(size=T_MONTHS - 1), device=dev, dtype=f32)
@@ -1438,21 +1635,80 @@ def sv_phases(yfm, dev, report):
         else:
             nzt, ut = nz_sv.expand(Dt, T_MONTHS - 1, Pt), u_sv.expand(Dt, T_MONTHS - 1)
         inputs = fused_pf.kernel_inputs(spec, pt, panel32, nzt, ut, live, 0.95, 0.2, 0.5)
-        ms = cuda_ms(lambda: fused_pf.launch(inputs), reps=3 if Dt >= 1000 else 20, warmup=1)
+        reps = 3 if Dt >= 1000 else 20
+        layouts = K5_LAYOUTS if Pt <= 256 else ("block",)
+        # the layouts in turns, twice (block, cluster, block, cluster), so a
+        # drift of the card's clock falls on both alike
+        times = {lay: [] for lay in layouts}
+        for _ in range(2):
+            for lay in layouts:
+                times[lay].append(cuda_ms(lambda: fused_pf.launch(inputs, layout=lay),
+                                          reps=reps, warmup=1))
+        by_layout = {lay: sum(v) / len(v) for lay, v in times.items()}
+        chosen = fused_pf.layout_of(inputs)
+        ms = by_layout["block" if chosen == "multi" else chosen]
         bytes_, flops = pf_work(inputs, spec, finite_cols)
         bound_ms, bound_by = bound(bytes_, flops)
-        row = {"D": Dt, "P": Pt, "n_live": live, "ms": ms, "bytes": bytes_, "flops": flops,
+        row = {"D": Dt, "P": Pt, "n_live": live, "ms": ms, "layout": chosen,
+               "ms_by_layout": by_layout, "bytes": bytes_, "flops": flops,
                "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": None,
                "particle_steps_per_s": Dt * live * (T_MONTHS - 1) / (ms * 1e-3)}
         if label == "config 3":
             row["plain_ms"] = cuda_ms(lambda: fused_pf.reference(inputs), reps=1, warmup=0)
             del nzt
+        if label in K5_STAGE_SHAPES:
+            stage_inputs[label] = inputs
         shapes[label] = row
         plain_txt = "" if row["plain_ms"] is None else f", plain {row['plain_ms']:.1f} ms"
-        print(f"  {label} (D={Dt}, P={Pt}, {live} live): kernel {ms:.4f} ms, bound "
+        lay_txt = ", ".join(f"{k} {v:.4f} ms" for k, v in by_layout.items())
+        print(f"  {label} (D={Dt}, P={Pt}, {live} live): {lay_txt}; picks {chosen}; bound "
               f"{bound_ms:.4f} ms ({bound_by}; "
               f"{flops / (Dt * live * (T_MONTHS - 1)):.0f} flop a particle-step, "
               f"{bytes_ / 1e6:.1f} MB){plain_txt}")
+    # stage clocks (the clock build), the latency-chain bound from the
+    # probes' latencies, and the step loop's SASS
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    lat = ssd_latencies(f32, dev)
+    plat = pf_latencies(f32, dev)
+    lat.update({"log": plat["log_add"] - lat["add"], "shared": plat["shared_load"]})
+    print("  latency probe f32 (cycles an operation): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in {**lat, **plat}.items()))
+    k5_stages = {}
+    for label, inputs in stage_inputs.items():
+        Pt, live = inputs.normals.shape[-1], inputs.n_eff
+        for lay in shapes[label]["ms_by_layout"]:
+            st = pf_stage_clocks(fused_pf, inputs, lay)
+            chain, step_cyc, extra = pf_chain_ms(spec.state_dim, inputs.panel.shape[1], Pt,
+                                                 live, finite_cols, st["resampling_steps"],
+                                                 lat, clock_mhz)
+            st.update({"chain_bound_ms": chain, "chain_cycles_step": step_cyc,
+                       "chain_cycles_resample": extra, "clock_mhz": clock_mhz,
+                       "ms": shapes[label]["ms_by_layout"][lay]})
+            k5_stages[f"{label} {lay}"] = st
+            shapes[label].setdefault("chain_bound_ms", chain)
+            cyc = st["cycles_per_step"]
+            print(f"  {label} {lay}: {st['ms']:.4f} ms, chain bound {chain:.4f} ms "
+                  f"({step_cyc:.0f} cycles an observed step, +{extra:.0f} a resampling); "
+                  f"stage cycles a step: " + ", ".join(f"{k} {v:.0f}" for k, v in cyc.items())
+                  + f" (ess per contributing, scan/search/gather per resampling step); loop "
+                  f"{st['loop_cycles_per_step']:.0f} a "
+                  f"step ({st['loop_cycles_per_step'] * st['steps'] / (clock_mhz * 1e3):.4f} ms "
+                  f"at {clock_mhz:.0f} MHz); {st['contributing_steps']} contributing, "
+                  f"{st['resampling_steps']} resampling steps; {st['ms_with_stamps']:.4f} ms "
+                  f"with the stamps; draw 0 on SMs {st['sms']}")
+            if st["helper_cycles_per_step"] is not None:
+                print(f"    helper warp, cycles a step: " + ", ".join(
+                    f"{k} {v:.0f}" for k, v in st["helper_cycles_per_step"].items()))
+    sass = sass_loop_counts(_build._lib_path("fused_pf"), needle="fused_pf")
+    if sass is None:
+        print("  SASS: no cuobjdump in this toolkit: not measured")
+    else:
+        for name, v in sass.items():
+            print(f"  SASS {name}: {v['instructions']} instructions, step loop {v['step_loop']}")
+    report["k5_stage_clocks"] = k5_stages
+    report["k5_latencies"] = {"ssd_probe": {k: v for k, v in lat.items()}, "pf_probe": plat}
+    report["k5_sass"] = sass
     report["k5_shapes"] = shapes
     report["k5_clock_mhz"] = clock_mhz
 
@@ -1479,16 +1735,28 @@ def sv_phases(yfm, dev, report):
             by_batch = {}
             for Db, _, _ in events:
                 by_batch[Db] = by_batch.get(Db, 0) + 1
+            best_sha = hashlib.sha256(np.ascontiguousarray(out[0]).tobytes()).hexdigest()
             run = {"ll": out[1], "lls": out[2].tolist(), "iters": out[3].tolist(),
-                   "best": out[0], "wall_s": wall, "k5_s": k5_s, "launches": bp.launches,
-                   "launches_by_batch": by_batch, "plain_calls": ref_calls.calls}
+                   "best": out[0], "best_sha256": best_sha, "wall_s": wall, "k5_s": k5_s,
+                   "launches": bp.launches, "launches_by_batch": by_batch,
+                   "layout_by_batch": dict(timed_pf_launches.layouts),
+                   "plain_calls": ref_calls.calls}
             if full:
                 run["sv_hat"] = out[4]
             sv_runs[label] = run
-            print(f"  {label}: ll {out[1]:.6f}, iterations {out[3].tolist()}, launches "
-                  f"{bp.launches} (by batch {by_batch}), plain {ref_calls.calls}; wall "
+            print(f"  {label}: ll {out[1]:.6f} ({out[1].hex()}), iterations "
+                  f"{out[3].tolist()}, launches {bp.launches} (by batch {by_batch}), plain "
+                  f"{ref_calls.calls}; layouts {timed_pf_launches.layouts}; best parameters "
+                  f"sha256 {best_sha[:16]}; wall "
                   f"{wall:.2f} s, K5 on the card {k5_s:.2f} s ({100 * k5_s / wall:.1f}%)"
                   + (f"; (φ_h, σ_h) = ({out[4][0]:.4f}, {out[4][1]:.4f})" if full else ""))
+            want = PARENT_SV.get(label)
+            if want is not None:
+                got = {"ll": out[1].hex(), "iters": out[3].tolist(),
+                       "launches_by_batch": by_batch, "best_sha256": best_sha[:16]}
+                check(got == want, f"estimate_sv {label}: {got} is not the recorded "
+                      f"result of the block kernel, {want}")
+                print(f"  {label}: the block kernel's recorded result, bit for bit")
             check(bp.launches >= 1, f"estimate_sv {label}: K5 never launched")
             check(ref_calls.calls == 0, f"estimate_sv {label}: the plain version ran")
             check(math.isfinite(out[1]), f"estimate_sv {label}: non-finite ll")

@@ -494,6 +494,66 @@ def test_fused_pf_runs_more_slots_than_threads(card, slots):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [1, 8, 392])
+def test_fused_pf_cluster_launch_equals_block_launch(card, D, dtype):
+    """K5 with one draw over a thread-block cluster (8 CTAs at P = 256, each
+    a chain warp and a helper warp) against one draw a block on the same
+    inputs, bit for bit
+    (torch.equal): 200 live of 256 slots, one noise pair shared by every
+    draw (as estimate_sv passes it), a NaN column, and a draw whose loglik
+    is −Inf in the kernel (σ² < 0)."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_pf
+
+    s64, batch, data, nz, u = _pf_case(card, D=1, T=40, P_slots=256)
+    rng = np.random.default_rng(7)
+    batch = torch.as_tensor(_afns5_batch(s64, D, rng), device=card)
+    batch[0, 2] = -4e-4  # σ² < 0: every update's f ≤ 0
+    data[:, 9] = float("nan")
+    spec = s64 if dtype == torch.float64 else P.create_model("AFNS5", MATS)[0]
+    inputs = fused_pf.kernel_inputs(spec, batch.to(dtype), data.to(dtype),
+                                    nz.to(dtype).expand(D, -1, -1), u.to(dtype).expand(D, -1),
+                                    200, 0.95, 0.2, 0.5)
+    block = fused_pf.launch(inputs, layout="block")
+    cluster = fused_pf.launch(inputs, layout="cluster")
+    torch.cuda.synchronize()
+    assert cluster.dtype == dtype and cluster[0] == -np.inf
+    assert D == 1 or bool(torch.isfinite(cluster[1:]).all())
+    assert torch.equal(block, cluster)
+    if D == 8:
+        assert fused_pf.layout_of(inputs) == "cluster"
+
+
+@pytest.mark.cuda
+def test_fused_pf_cluster_launch_at_128_slots_and_its_refusal_above_256(card):
+    """The cluster launch at 4 CTAs (128 slots) against the
+    block launch bit for bit and the plain version at rtol 1e-9, float64,
+    resampling at every step (ESS threshold 1.5) with dead slots and an
+    invalid draw; forced above 256 slots (more than 8 CTAs) it raises and
+    launches nothing."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_pf
+
+    s64, batch, data, nz, u = _pf_case(card, D=3, T=24, P_slots=128)
+    batch[2, 23] = 1.5  # Φ₁₁ > 1
+    inputs = fused_pf.kernel_inputs(s64, batch, data, nz, u, 100, 0.95, 0.2, 1.5)
+    block = fused_pf.launch(inputs, layout="block")
+    cluster = fused_pf.launch(inputs, layout="cluster")
+    torch.cuda.synchronize()
+    assert torch.equal(block, cluster)
+    ref = fused_pf.reference(inputs).cpu().numpy()
+    got = cluster.cpu().numpy()
+    assert got[2] == -np.inf and np.isfinite(ref[:2]).all()
+    np.testing.assert_allclose(got[:2], ref[:2], rtol=1e-9)
+    s64, batch, data, nz, u = _pf_case(card, D=2, T=8, P_slots=384)
+    wide = fused_pf.kernel_inputs(s64, batch, data, nz, u, 384, 0.95, 0.2, 0.5)
+    launches = fused_pf.pf_loglik_batch.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fused_pf.launch(wide, layout="cluster")
+    assert fused_pf.pf_loglik_batch.launches == launches
+    assert fused_pf.layout_of(wide) == "block"
+
+
+@pytest.mark.cuda
 def test_estimate_sv_on_the_card_matches_the_cpu(card):
     """The lockstep ``estimate_sv`` on the card (K5) against the same call
     on the CPU (K5's plain version), float64 both, on one noise pair: the

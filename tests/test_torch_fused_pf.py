@@ -11,7 +11,8 @@ on the CPU, float64.
   ``estimate_sv``'s search gives them).
 - More slots than the card's kernel runs (1,152 > 1,024) on the CPU,
   against the 1,152-particle filter: the limit is the kernel's alone.
-- The entry point's three refusals, in JAX's words.
+- The entry point's three refusals, in JAX's words, and the launch's refusal
+  of an unknown layout (before it looks for the card).
 """
 
 import functools
@@ -137,3 +138,14 @@ def test_refusals_in_the_jax_words():
     tvl, _ = P.create_model("TVλ", tuple(MATS), float_type="float64")
     with pytest.raises(ValueError, match="constant-measurement"):
         fused_pf.pf_loglik_batch(tvl, batch, data, nz, u, device="cpu")
+
+
+def test_launch_refuses_an_unknown_layout():
+    """``launch(inputs, layout=...)`` takes None, "block" or "cluster" and
+    raises for any other name before it builds or launches anything."""
+    _, ts = _specs()
+    data, batch, nz, u = _setup(D=1, T=8)
+    inputs = fused_pf.kernel_inputs(ts, torch.as_tensor(batch), torch.as_tensor(data),
+                                    torch.as_tensor(nz), torch.as_tensor(u), NP, 0.95, 0.2, 0.5)
+    with pytest.raises(ValueError, match="layout must be one of"):
+        fused_pf.launch(inputs, layout="warp")

@@ -24,6 +24,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels_build"
 
+#: yfm_fused_pf's arguments up to ``out``: dtype, ms, D, N, T, P, n_eff, npar;
+#: the four noise strides; th, log_uniform; rows, panel, normals, uniforms,
+#: scratch, out
+_PF_ARGS = ([ctypes.c_int] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_double] * 2
+            + [ctypes.c_void_p] * 6)
+
 #: kernel library name -> (source file under csrc/, {C entry point: argtypes},
 #: extra nvcc flags); every pointer and the stream are c_void_p so ctypes never
 #: cuts them to 32 bits, and host constants are c_double
@@ -51,8 +57,15 @@ KERNELS = {
         "yfm_ssd_latencies": [ctypes.c_int] + [ctypes.c_void_p] * 3},
         ("-fmad=false", "-DYFM_SSD_CLOCKS")),
     "fused_pf": ("fused_pf.cu", {
-        "yfm_fused_pf": [ctypes.c_int] * 8 + [ctypes.c_longlong] * 4
-                        + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 7}),
+        "yfm_fused_pf": _PF_ARGS + [ctypes.c_int, ctypes.c_void_p],
+        "yfm_fused_pf_layout": [ctypes.c_int] * 6}),
+    # K5 again with clock64() stamps between the stages of a step and a
+    # latency probe (log, shared and DSMEM loads, the cluster barrier):
+    # chip_smoke.py's stage breakdown loads it, pf_loglik_batch never does
+    "fused_pf_clocks": ("fused_pf.cu", {
+        "yfm_fused_pf_clocks": _PF_ARGS + [ctypes.c_int] + [ctypes.c_void_p] * 2,
+        "yfm_pf_latencies": [ctypes.c_int] + [ctypes.c_void_p] * 3},
+        ("-DYFM_PF_CLOCKS",)),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -3,8 +3,10 @@
 Counterpart of ``yieldfactormodels_jl_tpu/ops/pallas_pf.py``.  The kernel,
 ``csrc/fused_pf.cu``, replaces the Pallas TPU kernel ``pallas_pf._kernel``:
 ``ops/particle.particle_filter_loglik`` in its common-noise mode for a batch
-of D draws, one thread block a draw and one thread a particle slot (above
-1,024 slots, several slots a thread).
+of D draws, one thread a particle slot: one thread-block cluster a draw
+while the batch's clusters fit the card at once (a few draws, as
+``estimate_sv``'s step batch), otherwise one thread block a draw (above
+1,024 slots, several slots a thread).  Both layouts return the same bits.
 
 ``pf_loglik_batch`` takes (D, n_params) *constrained* draws, an (N, T) panel
 and the noise arrays ``normals`` (D, T−1, P) and ``uniforms`` (D, T−1), P a
@@ -112,35 +114,72 @@ def reference(inputs: KernelInputs) -> torch.Tensor:
 reference.calls = 0
 
 
-def launch(inputs: KernelInputs) -> torch.Tensor:
-    """One launch of the CUDA kernel on PyTorch's current stream; returns the
-    (D,) logliks with the ``fac_ok`` sentinel applied.  Above 1,024 slots it
-    allocates the kernel's state scratch, (D, 2·RW + 2, P) with RW = Ms +
-    Ms(Ms+1)/2 + 1.  Raises if the launch is refused."""
-    out = inputs.out
+#: ``launch``'s layouts: None picks by the batch, the others force one
+_LAYOUTS = {None: 0, "block": 1, "cluster": 2}
+_LAYOUT_NAMES = {1: "block", 2: "cluster", 3: "multi"}
+
+
+def _scratch(inputs: KernelInputs):
+    """The state scratch of the kernel above 1,024 slots, (D, 2·RW + 2, P)
+    with RW = Ms + Ms(Ms+1)/2 + 1; None at or below."""
+    P = inputs.normals.shape[-1]
+    if P <= _BLOCK_SLOTS:
+        return None
+    Ms, out = inputs.Ms, inputs.out
+    rw = Ms + Ms * (Ms + 1) // 2 + 1
+    return torch.empty((out.shape[0], 2 * rw + 2, P), dtype=out.dtype, device=out.device)
+
+
+def launch_args(inputs: KernelInputs, scratch=None) -> tuple:
+    """The C entry point's arguments up to ``out``, in its order."""
     D, npar = inputs.rows.shape
     T, N = inputs.panel.shape
-    P = inputs.normals.shape[-1]
-    Ms = inputs.Ms
-    scratch = None
-    if P > _BLOCK_SLOTS:
-        rw = Ms + Ms * (Ms + 1) // 2 + 1
-        scratch = torch.empty((D, 2 * rw + 2, P), dtype=out.dtype, device=out.device)
     nz, us = inputs.normals, inputs.uniforms
-    lib = load("fused_pf")
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = lib.yfm_fused_pf(
-            _DTYPE_CODES[out.dtype], inputs.Ms, D, N, T, P, inputs.n_eff, npar,
-            nz.stride(0), nz.stride(1), us.stride(0), us.stride(1),
+    return (_DTYPE_CODES[inputs.out.dtype], inputs.Ms, D, N, T, nz.shape[-1], inputs.n_eff,
+            npar, nz.stride(0), nz.stride(1), us.stride(0), us.stride(1),
             ctypes.c_double(inputs.ess_threshold * inputs.n_eff),
             ctypes.c_double(-math.log(float(inputs.n_eff))),
             inputs.rows.data_ptr(), inputs.panel.data_ptr(), nz.data_ptr(), us.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(), stream)
+            None if scratch is None else scratch.data_ptr(), inputs.out.data_ptr())
+
+
+def _layout_code(layout) -> int:
+    if layout not in _LAYOUTS:
+        raise ValueError(f"layout must be one of {list(_LAYOUTS)}; got {layout!r}")
+    return _LAYOUTS[layout]
+
+
+def launch(inputs: KernelInputs, layout=None) -> torch.Tensor:
+    """One launch of the CUDA kernel on PyTorch's current stream; returns the
+    (D,) logliks with the ``fac_ok`` sentinel applied.  Above 1,024 slots it
+    allocates the kernel's state scratch.  ``layout`` None lets the kernel
+    pick by the batch (a thread-block cluster a draw while the batch's
+    clusters fit the card at once, else a block a draw); "block" or
+    "cluster" forces one, so that tests can hold the two against each other.
+    Raises if the launch is refused."""
+    code = _layout_code(layout)
+    out = inputs.out
+    lib = load("fused_pf")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.yfm_fused_pf(*launch_args(inputs, _scratch(inputs)), code, stream)
     if err != 0:
         raise RuntimeError(f"fused_pf kernel launch failed: cudaError {err}")
     pf_loglik_batch.launches += 1
     return _finish(out, inputs.fac_ok)
+
+
+def layout_of(inputs: KernelInputs) -> str:
+    """The layout ``launch`` picks for these inputs on their card: "block",
+    "cluster" or "multi" (several slots a thread)."""
+    D, npar = inputs.rows.shape
+    with torch.cuda.device(inputs.out.device):
+        code = load("fused_pf").yfm_fused_pf_layout(
+            _DTYPE_CODES[inputs.out.dtype], inputs.Ms, D, inputs.panel.shape[1],
+            inputs.normals.shape[-1], npar)
+    if code < 0:
+        raise RuntimeError(f"fused_pf layout query failed: cudaError {-code}")
+    return _LAYOUT_NAMES[code]
 
 
 def _prepare(spec: ModelSpec, params_batch, data, normals, uniforms, n_particles,
