@@ -17,7 +17,9 @@ Phases (any failure raises and the script exits non-zero):
    then predict from the best draw.  This is the main path; the launch
    counts are set to 0 just before it and read just after.  Afterwards the
    float32 kernel is held against the plain float64 version at rtol 5e-4,
-   atol 1e-2, and the kernel's float64 instantiation at rtol 1e-9.
+   atol 1e-2, and the kernel's float64 instantiation at rtol 1e-9.  Every
+   K1 layout (warp and octet) against the thread layout bit for bit
+   (torch.equal), float32 and float64, at B = 1, 256, 1024 and 16384.
 3. other families at B=2048 — "1C" DNS with interior NaN columns and an
    invalid draw (must give −inf), TVλ under both exact_jacobian settings,
    per-draw [start, end) windows; the float32 kernel against the plain
@@ -25,14 +27,24 @@ Phases (any failure raises and the script exits non-zero):
    the plain float64 version at rtol 1e-9, each on the draws whose answer its
    type determines (it moves less than a quarter of the tolerance when the
    parameters move by 1e-7, resp. 1e-15, relative; at least 85% of draws).
-   The TVλ cases run on a panel from a DNS DGP that their draws fit.
+   The TVλ cases run on a panel from a DNS DGP that their draws fit.  On
+   every case, every K1 layout against the thread layout bit for bit.
+   Then AFNS5 at 360 maturities in float64, B = 256 and 1,024: the pick
+   (warp, then the thread layout once four draws' rows pass a block's
+   shared memory) equals the thread layout bit for bit and the plain
+   version at rtol 1e-9.
 4. forecast — predict from the best draw with a 12-column NaN tail on the
    card against the same call on the CPU, both float64, at rtol 1e-9.
 5. timing — CUDA events around repeated launches after a warm-up, at
    B=1024 and B=16384, for K1, K2f and K2b (AFNS5), and K1-TVλ, K3f and K3b
    (TVλ on phase 3's DNS panel, both exact_jacobian settings), and
    value-and-gradient evals/s through the fused objective; the plain
-   versions once, at B=1024, for information.
+   versions once, at B=1024, for information.  K1 by layout, each in
+   turns, at B = 1 to 16384 (AFNS5 and TVλ float32, AFNS5 float64) with
+   the layout the kernel picks; at B=1 K1's cycles a step by stage in each
+   layout and type from the clock build (``fused_kf_clocks``), its
+   latency-chain bound (``kf_chain_ms``, at K4's probe's latencies) and the
+   SASS counts of its instances.
 6. gradient pairs at full width — through the fused objective's
    value-and-gradient (launch counts 1 and 1, plain versions 0): AFNS5,
    B=1024 (K2f + K2b) and TVλ, B=1024, under both exact_jacobian settings
@@ -64,11 +76,14 @@ Phases (any failure raises and the script exits non-zero):
    does; then TVλ (K3f/K3b) on a panel simulated from the TVλ EKF's
    nonlinear measurement at the first of its starts.  Then small "1C" and
    TVλ fits on which the optimizer moves (N=6, T=60, S=3), on the card
-   against the same calls on the CPU.
+   against the same calls on the CPU.  Each fit's ll, iterations, launches
+   by kernel and parameter hash equal the thread kernel's recorded result
+   (``PARENT_FITS``) bit for bit.
 8. rolling windows — ``estimate_windows`` for AFNS5 and TVλ on phase 7's
    panels: W=8 expanding windows [0, 248+16w) × S=32 starts (256 draws),
    launch counts as in 7; each window's best ll against ``estimate`` on
-   that window alone from the same starts, at rtol 1e-5; the wall time.
+   that window alone from the same starts, at rtol 1e-5; the wall time;
+   the record against ``PARENT_FITS`` bit for bit.
 9. K4 at full width — the score-driven loss kernel on bench's DNS panel
    (benchmarks/common.py's, seed 0, +4), N=20, T=360: 1SSD-NNS and SSD-NS at
    B=257 (the A×B grid around bench's ``ssd_nns_params``, filled with
@@ -599,14 +614,103 @@ def leaves_close(got, ref, rtol, atol_rel, what, rows=None):
     return worst
 
 
-def chain_ms(Ms, N, T, clock_mhz):
-    """Estimate of the serial dependency chain of one draw: T steps of N
-    scalar updates, each waiting for the previous one's P — zP and f are
-    Ms-deep FMA chains, the IEEE division about 10 dependent operations,
-    then one FMA into P — plus the 2·Ms-deep transition; 4 cycles an
-    operation at the card's maximum SM clock."""
-    cycles = T * (N * (2 * Ms + 11) + 2 * Ms) * 4
-    return cycles / (clock_mhz * 1e6) * 1e3
+#: K1's layouts ("thread" first: the others are held against it), the batches
+#: [5] times them at, and its stage clocks in the order of kf_common.cuh's
+#: KfStage enum
+K1_LAYOUTS = ("thread", "warp", "octet")
+K1_TIMING_BATCHES = (1, 256, 512, 1024, 2048, 4096, 8192, 16384)
+KF_STAGES = ("head", "row", "zP", "f_pred", "div", "update", "loglik", "sym",
+             "transition", "stamp_pair")
+#: the stages that run on every step, observed or not; the others run on
+#: observed steps only
+KF_EVERY_STEP = ("head", "transition", "stamp_pair")
+
+
+def kf_layouts_equal(fused_kf, inputs, what):
+    """Every K1 layout against the thread layout on the same inputs, bit for
+    bit (torch.equal: the same −inf draws and every finite bit).  Returns
+    the picked layout's output."""
+    outs = {lay: fused_kf.launch(inputs, layout=lay).clone() for lay in K1_LAYOUTS}
+    pick = fused_kf.layout_of(inputs)
+    ref = outs["thread"]
+    for lay in K1_LAYOUTS[1:]:
+        n_diff = int((outs[lay] != ref).sum())
+        check(torch.equal(outs[lay], ref), f"{what}: the {lay} layout differs from the "
+              f"thread layout on {n_diff} of {ref.numel()} draws")
+    print(f"  {what}: {' and '.join(K1_LAYOUTS[1:])} == thread bit for bit on "
+          f"{ref.numel()} draws ({int(torch.isinf(ref).sum())} −inf); picks {pick}")
+    return outs[pick]
+
+
+def kf_stage_clocks(fused_kf, inputs, layout, reps=3):
+    """K1's cycles by stage for draw 0 (the clock build, ``fused_kf_clocks``:
+    the same source with clock64() stamps between a step's stages; lane 0's
+    in a group layout), from the last of ``reps`` launches: each stage's
+    cycles a step — an observed step for the stages that run only there —
+    and the loop's.  Also the launch's time with the stamps on."""
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    lib = _build.load("fused_kf_clocks")
+    clocks = torch.zeros(len(KF_STAGES) + 3, dtype=torch.int64, device=inputs.out.device)
+    ptrs = [None if x is None else x.data_ptr() for x in inputs.buffers]
+    code = fused_kf._layout_code(layout)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.yfm_fused_kf_clocks(*inputs.ints, *ptrs, inputs.out.data_ptr(), code,
+                                      clocks.data_ptr(), stream)
+        check(err == 0, f"K1 clock build launch failed: cudaError {err}")
+
+    ms = cuda_ms(run, reps=reps, warmup=1)
+    c = clocks.cpu().tolist()
+    steps, n_obs, loop = c[-3:]
+    per_step = {name: c[q] / (steps if name in KF_EVERY_STEP else max(n_obs, 1))
+                for q, name in enumerate(KF_STAGES)}
+    return {"cycles_per_step": per_step, "loop_cycles_per_step": loop / steps,
+            "steps": steps, "observed_steps": n_obs, "ms_with_stamps": ms}
+
+
+def kf_chain_counts(Ms, tvl=False):
+    """The dependent path of the Kalman recursion by operation class, every
+    sum kept in the recursion's order but every independent operation on
+    its own unit (a fused multiply-add counted as one mul), and no layout's
+    broadcasts: the function's own path, which no layout can beat.  Returns
+    the counts of one observed update, of an observed step's additions and
+    of every step's transition.
+
+    - update (the next update waits for P): the Ms column sums zP (Ms FMAs,
+      side by side), f from σ² in order (each FMA waits for its zP, so f
+      ends Ms FMAs after the last zP), the f > 0 select (add), one IEEE
+      division (the gains side by side) and one FMA into P; β, v and the
+      loglik term run beside it.
+    - observed step: the symmetrization (add, mul), and for TVλ the rows'
+      build from the predicted β: e^{β₃}, λ, x = λτ, e^{−x}, 1 − e^{−x},
+      a division, the Jacobian's subtraction, FMA and scaling.
+    - transition: an element of ΦP (Ms FMAs), then of ΦPΦᵀ + Ω (Ms FMAs);
+      β⁺ runs beside it."""
+    update = {"mul": 2 * Ms + 1, "add": 1, "div": 1}
+    observed = {"add": 1, "mul": 1}
+    if tvl:
+        for k, v in {"exp": 2, "add": 3, "mul": 3, "div": 1}.items():
+            observed[k] = observed.get(k, 0) + v
+    transition = {"mul": 2 * Ms}
+    return update, observed, transition
+
+
+def kf_chain_ms(Ms, N, steps, obs_steps, lat, clock_mhz, tvl=False):
+    """K1's latency-chain bound for one draw: the dependent path of
+    ``kf_chain_counts`` at the cycles of each operation class that K4's
+    probe measures (``ssd_latencies``), over ``obs_steps`` observed steps of
+    N updates and ``steps`` transitions, at the card's maximum SM clock.
+    Returns (ms, cycles of an observed step)."""
+    update, observed, transition = kf_chain_counts(Ms, tvl)
+
+    def cycles(counts):
+        return sum(v * lat[k] for k, v in counts.items())
+
+    step = N * cycles(update) + cycles(observed) + cycles(transition)
+    total = obs_steps * (N * cycles(update) + cycles(observed)) + steps * cycles(transition)
+    return total / (clock_mhz * 1e6) * 1e3, step
 
 
 def cuda_ms(fn, reps, warmup=3):
@@ -702,6 +806,83 @@ def check_counts(counts, what):
     check(counts["plain"] == (0, 0, 0), f"{what}: plain versions ran on the card: {counts}")
 
 
+#: ``estimate``'s and ``estimate_windows``' results in [7] and [8] on an H100
+#: with K1's thread layout alone (before the warp and octet layouts
+#: existed): the ll's float.hex() (each window's best for estimate_windows),
+#: the launches by kernel, and the first 16 hex digits of the sha256 of the
+#: iterations (int64) and of the best parameters (float64 bytes; for
+#: estimate_windows the (W, S) lls and the (W, S, P) parameters); [7] and [8]
+#: must repeat them bit for bit (recorded on an NVIDIA H100 80GB HBM3)
+PARENT_FITS = {
+    "estimate AFNS5": {
+        "K1": 25, "forward": 2, "backward": 2, "value_and_grad_calls": 2,
+        "ll": "0x1.b7c8320000000p+13",
+        "iters": "e5a00aa9991ac8a5",
+        "best_sha256": "4087dc1697f75be0",
+    },
+    "estimate TVλ": {
+        "K1": 25, "forward": 2, "backward": 2, "value_and_grad_calls": 2,
+        "ll": "0x1.f2776e0000000p+13",
+        "iters": "e5a00aa9991ac8a5",
+        "best_sha256": "d6d68b700564f744",
+    },
+    "estimate 1C N=6": {
+        "K1": 42, "forward": 21, "backward": 21, "value_and_grad_calls": 21,
+        "ll": "-0x1.f8699a0000000p+7",
+        "iters": 20,
+        "best_sha256": "32aa6af8de99914f",
+    },
+    "estimate TVλ N=6": {
+        "K1": 43, "forward": 21, "backward": 21, "value_and_grad_calls": 21,
+        "ll": "-0x1.faee720000000p+7",
+        "iters": 20,
+        "best_sha256": "a5e74e4e85985223",
+    },
+    "estimate_windows AFNS5": {
+        "K1": 25, "forward": 2, "backward": 2, "value_and_grad_calls": 2,
+        "ll": [
+            "0x1.2c55000000000p+13", "0x1.4079700000000p+13", "0x1.5451fe0000000p+13",
+            "0x1.67f8280000000p+13", "0x1.7b84080000000p+13", "0x1.8ff9ca0000000p+13",
+            "0x1.a2f4b80000000p+13", "0x1.b7c8320000000p+13",
+        ],
+        "lls_sha256": "f29124335a4bce72",
+        "best_sha256": "62d8c3e39cd28a27",
+    },
+    "estimate_windows TVλ": {
+        "K1": 25, "forward": 2, "backward": 2, "value_and_grad_calls": 2,
+        "ll": [
+            "0x1.5593160000000p+13", "0x1.6bae8c0000000p+13", "0x1.81f06e0000000p+13",
+            "0x1.98b1a00000000p+13", "0x1.aef7d60000000p+13", "0x1.c5733e0000000p+13",
+            "0x1.dc484e0000000p+13", "0x1.f2776e0000000p+13",
+        ],
+        "lls_sha256": "cbdb06c54e9b85a8",
+        "best_sha256": "7b405ab4991dffc1",
+    },
+}
+
+
+def sha16(x):
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()[:16]
+
+
+def fit_record(counts, **fields):
+    """What [7] and [8] hold against ``PARENT_FITS``: the launches by kernel
+    and the given fields."""
+    rec = {k: counts[k] for k in ("K1", "forward", "backward", "value_and_grad_calls")}
+    rec.update(fields)
+    return rec
+
+
+def check_parent_fit(label, rec):
+    """Print a fit's record and hold it against the parent's, bit for bit."""
+    print(f"  record {label!r}: {json.dumps(rec, ensure_ascii=False)}")
+    check(PARENT_FITS is not None and label in PARENT_FITS,
+          f"{label}: no parent record to hold it against")
+    check(PARENT_FITS[label] == rec, f"{label}: differs from the parent's record "
+          f"{PARENT_FITS[label]}")
+    print(f"  {label}: the parent's ll, iterations, launches and parameters bit for bit")
+
+
 def full_width_fit(yfm, optimize, spec, spec64, sim, starts, dev):
     """``estimate`` at N=20, T=360 from the (S, P) constrained ``starts`` on
     the card, with the launch counts set to 0 just before it: K1 ≥ 1, the
@@ -781,10 +962,12 @@ def full_width_fit(yfm, optimize, spec, spec64, sim, starts, dev):
           f"iterations max {iters.max()}, mean {iters.mean():.2f}, starts that moved "
           f"{moved}/{S}, wall {fit_s:.2f} s (the plain re-evaluation alone "
           f"{verify_s:.2f} s); trust-but-verify passed")
+    record = fit_record(counts, ll=float.hex(ll_fit), iters=sha16(iters.astype(np.int64)),
+                        best_sha256=sha16(np.asarray(best_p, dtype=np.float64)))
     return {"S": S, "ll": ll_fit, "best_start_ll": best_start,
             "iterations_max": int(iters.max()), "iterations_mean": float(iters.mean()),
             "starts_moved": moved, "converged": bool(conv), "wall_s": fit_s,
-            "verify_s": verify_s, "counts": counts}
+            "verify_s": verify_s, "counts": counts, "record": record}
 
 
 def small_fit(yfm, optimize, code, mats, obs_var):
@@ -814,7 +997,11 @@ def small_fit(yfm, optimize, code, mats, obs_var):
     raw = yfm.untransform_params(spec, torch.as_tensor(starts.T)).to(torch.float32)
     best = float((-optimize.fused_objectives(spec, torch.as_tensor(data, dtype=torch.float32),
                                              0, 60)[0](raw)).max())
-    _, ll_card, _, conv_card = yfm.estimate(spec, data, starts, max_iters=20)
+    with counted_objectives(optimize) as vag_calls:
+        zero_counts(spec)
+        _, ll_card, best_card, conv_card = yfm.estimate(spec, data, starts, max_iters=20)
+        torch.cuda.synchronize()
+        counts = read_counts(spec, vag_calls[0])
     _, ll_cpu, _, conv_cpu = yfm.estimate(spec, data, starts, max_iters=20, device="cpu")
     print(f"  card ll {ll_card:.6f} ({conv_card}), CPU ll {ll_cpu:.6f} ({conv_cpu}), "
           f"best start {best:.6f}")
@@ -822,6 +1009,8 @@ def small_fit(yfm, optimize, code, mats, obs_var):
           f"the small {code} fit did not move on the card")
     check(abs(ll_card - ll_cpu) <= 1e-3 * abs(ll_cpu),
           f"the small {code} fit on the card and on the CPU differ by more than rtol 1e-3")
+    return fit_record(counts, ll=float.hex(ll_card), iters=conv_card.iterations,
+                      best_sha256=sha16(np.asarray(best_card, dtype=np.float64)))
 
 
 def windows_fit(yfm, optimize, label, spec, sim, starts, ends):
@@ -855,9 +1044,12 @@ def windows_fit(yfm, optimize, label, spec, sim, starts, ends):
           f"{label}: windows' best ll differ from estimate per window: {best} vs {alone}")
     print(f"  {label}: each window's best ll equals estimate on that window alone "
           f"(max rel err {float((err / np.abs(alone)).max()):.3e}); lls {np.round(best, 3)}")
+    record = fit_record(counts, ll=[float.hex(float(v)) for v in best],
+                        lls_sha256=sha16(np.asarray(lls, dtype=np.float64)),
+                        best_sha256=sha16(np.asarray(xs, dtype=np.float64)))
     return {"W": W, "S": S, "wall_s": wall_s, "counts": counts,
             "best_ll": best.tolist(), "estimate_ll": alone.tolist(),
-            "max_rel_err": float((err / np.abs(alone)).max())}
+            "max_rel_err": float((err / np.abs(alone)).max()), "record": record}
 
 
 # ---- this script's copies of benchmarks/common.py's config-6 inputs ---------
@@ -1130,6 +1322,15 @@ def sass_loop_counts(lib_path, needle="ssd_loss_kernel"):
             j = labels.get(target) if target.startswith(".L") else index.get(int(target, 16))
             if j is not None and j <= i:
                 span = max(span, i - j + 1)
+        kf = re.search(r"(fused_kf(?:_group)?_kernel)I([fd])", name)
+        if kf is not None:
+            ints = re.findall(r"L([ib])(\d+)E", name)
+            meas = (f"TVλ exact={ints[0][1] == '1'}" if "TvlMeas" in name
+                    else f"Ms={ints[0][1]}")
+            lanes = f" G={ints[1][1]}" if len(ints) > 1 else ""
+            out[f"{kf.group(1)} {'f32' if kf.group(2) == 'f' else 'f64'} {meas}{lanes}"] = {
+                "instructions": len(addrs), "step_loop": span}
+            continue
         args = re.search(needle + r"I([fd])Lb([01])ELi(\d+)E(?:Lb([01])E)?", name)
         pf = re.search(r"(fused_pf\w*?_kernel)I([fd])Li(\d+)E(?:Li(\d+)E)?", name)
         if args is None and pf is not None:
@@ -1853,6 +2054,13 @@ def kalman_phases(yfm, dev, report):
         got64 = fused_kf._batched_loglik(spec64, cons[B], panel64, dtype=f64)
         close(got64, ref, 1e-9, 0.0, f"B={B} f64 kernel vs plain f64")
     report["loglik_best"] = float(lls[1024][best])
+    # every K1 layout against the thread layout, bit for bit, on the main
+    # path's batches and on B = 1 and 256 of its draws, in both types
+    for B, p in ((1, cons[1024][:1]), (256, cons[1024][:256]), (1024, cons[1024]),
+                 (16384, cons[16384])):
+        for s_t, dtype in ((spec, f32), (spec64, f64)):
+            inputs = fused_kf.kernel_inputs(s_t, p.to(dtype), panel64.to(dtype), 0, T_MONTHS)
+            kf_layouts_equal(fused_kf, inputs, f"AFNS5 B={B} {str(dtype)[6:]}")
 
     # ---- 3. other families ------------------------------------------------------
     begin_phase("[3] other families at B=2048")
@@ -1893,12 +2101,40 @@ def kalman_phases(yfm, dev, report):
             got = fused_kf._batched_loglik(s, pt, data64, dtype=dtype, **kw)
             err = close(got[determined], ref[determined], rtol, atol,
                         f"{what}: {name} kernel vs plain {name}")
+            pl, dl, st, en = fused_kf._prepare(s, pt, data64, kw.get("starts"),
+                                               kw.get("ends"), None, dtype)
+            kf_layouts_equal(fused_kf, fused_kf.kernel_inputs(s, pl, dl, 0, T_MONTHS, st, en),
+                             f"{what} {name}")
             if dtype == f32:
                 errs.append(err)
             if "invalid" in what:
                 g = got.cpu()
                 check(g[5] == -math.inf and bool(torch.isfinite(g[4])),
                       "invalid draw must give −inf and leave its neighbour finite")
+    # many maturities: the pick takes a group layout only while its blocks
+    # fit the card at once.  360 monthly maturities in float64 (24 months of
+    # the panel, interpolated): a warp's block holds one AFNS5 draw's rows,
+    # an octet block's four draws pass a block's shared memory
+    wide_mats = np.arange(1, 361) / 12.0
+    wide64, _ = yfm.create_model("AFNS5", wide_mats, float_type="float64")
+    wide_panel = torch.as_tensor(
+        np.stack([np.interp(wide_mats, MATURITIES, panel[:, t]) for t in range(24)], 1),
+        device=dev, dtype=f64)
+    for B, want in ((256, "warp"), (1024, "thread")):
+        pw = torch.as_tensor(yfm.params_from_jax(wide64, make_param_batch(spec.n_params, B)),
+                             device=dev, dtype=f64)
+        inputs = fused_kf.kernel_inputs(wide64, pw, wide_panel, 0, 24)
+        pick = fused_kf.layout_of(inputs)
+        check(pick == want, f"N=360 f64 B={B}: picks {pick}, not {want}")
+        got = fused_kf.launch(inputs).clone()
+        thread = fused_kf.launch(inputs, layout="thread")
+        check(torch.equal(got, thread), f"N=360 f64 B={B}: the pick differs from the thread "
+              "layout")
+        check(bool(torch.isfinite(got).all()), f"N=360 f64 B={B}: non-finite loglik")
+        ref = fused_kf.batched_loglik_reference(wide64, pw, wide_panel)
+        close(got, ref, 1e-9, 0.0, f"N=360 f64 B={B}: picked {pick} vs plain f64")
+        print(f"  N=360 f64 B={B}: picks {pick}, == thread bit for bit, agrees with the plain "
+              "version")
 
     # ---- 4. forecast -------------------------------------------------------------
     begin_phase("[4] forecast: predict from the best draw, 12-step NaN tail")
@@ -1914,6 +2150,86 @@ def kalman_phases(yfm, dev, report):
     shapes, grad_shapes, tvl_shapes = {}, {}, {}
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     panel32 = torch.as_tensor(panel, device=dev, dtype=f32)
+    dns_panel32 = torch.as_tensor(dns_panel, device=dev, dtype=f32)
+    tvl_ref32 = dataclasses.replace(tvl32, exact_jacobian=False)
+    lats = {dtype: ssd_latencies(dtype, dev) for dtype in (f32, f64)}
+    for dtype, lat in lats.items():
+        print(f"  latency probe {str(dtype)[6:]} (K4's, cycles an operation): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in lat.items()))
+    chain = {}
+    for fam, Ms, tvl in (("AFNS5", spec.state_dim, False), ("TVλ", 4, True)):
+        for dtype in (f32, f64):
+            chain[f"{fam} {str(dtype)[6:]}"] = kf_chain_ms(
+                Ms, N_MATURITIES, T_MONTHS, T_MONTHS, lats[dtype], clock_mhz, tvl)
+    for key, (ms_c, cyc) in chain.items():
+        print(f"  K1 latency-chain bound {key}, one draw: {ms_c:.4f} ms ({cyc:.0f} cycles an "
+              f"observed step at {clock_mhz:.0f} MHz)")
+
+    # K1 by layout, each in turns (thread, warp, octet, thread, warp, octet)
+    # in this one call, at the batches of the main paths and above
+    def k1_draws(fam, B):
+        if fam == "AFNS5":
+            if B <= 1024:
+                return cons[1024][:B].to(f32)
+            return cons[B].to(f32) if B in cons else torch.as_tensor(
+                yfm.params_from_jax(spec64, make_param_batch(spec.n_params, B, seed=B)),
+                device=dev, dtype=f32)
+        return torch.as_tensor(kalman_draws(tvl_ref32, B, np.random.default_rng(B),
+                                            TVL_DELTA), device=dev, dtype=f32)
+
+    k1_layouts = {}
+    for fam, s32, pan in (("AFNS5", spec, panel32), ("TVλ", tvl_ref32, dns_panel32),
+                          ("AFNS5 float64", spec64, panel64)):
+        for B in K1_TIMING_BATCHES:
+            inputs = fused_kf.kernel_inputs(s32, k1_draws(fam.split()[0], B).to(pan.dtype),
+                                            pan, 0, T_MONTHS)
+            turns = {lay: [] for lay in K1_LAYOUTS}
+            for _ in range(2):
+                for lay in K1_LAYOUTS:
+                    turns[lay].append(cuda_ms(lambda: fused_kf.launch(inputs, layout=lay),
+                                              reps=20 if B < 16384 else 10))
+            ms = {lay: sum(v) / len(v) for lay, v in turns.items()}
+            pick = fused_kf.layout_of(inputs)
+            bytes_, flops = kernel_work(inputs, pan)
+            bound_ms, bound_by = bound(bytes_, flops)
+            k1_layouts[f"{fam} {B}"] = {"ms": ms, "turns": turns, "pick": pick,
+                                        "pick_ms": ms[pick], "bound_ms": bound_ms,
+                                        "bound_by": bound_by}
+            print(f"  K1 {fam} B={B}: " + ", ".join(
+                f"{lay} {ms[lay]:.4f} ms ({' / '.join(f'{t:.4f}' for t in turns[lay])})"
+                for lay in K1_LAYOUTS)
+                + f"; picks {pick} ({ms[pick] / ms['thread']:.3f}× thread); bound "
+                f"{bound_ms:.4f} ms ({bound_by})")
+    report["k1_layouts"] = k1_layouts
+    # stage clocks at one draw (the clock build), each layout, both types
+    k1_stages = {}
+    for fam, s32, pan in (("AFNS5", spec, panel32), ("TVλ", tvl_ref32, dns_panel32)):
+        p1 = k1_draws(fam, 1)
+        for dtype in (f32, f64):
+            sd = dataclasses.replace(s32, dtype_name=str(dtype)[6:])
+            inputs = fused_kf.kernel_inputs(sd, p1.to(dtype), pan.to(dtype), 0, T_MONTHS)
+            for lay in K1_LAYOUTS:
+                st = kf_stage_clocks(fused_kf, inputs, lay)
+                st["ms"] = cuda_ms(lambda: fused_kf.launch(inputs, layout=lay), reps=20)
+                k1_stages[f"{fam} {str(dtype)[6:]} {lay}"] = st
+                cyc = st["cycles_per_step"]
+                print(f"  K1 {fam} {str(dtype)[6:]} B=1 {lay}: {st['ms']:.4f} ms; cycles a step "
+                      f"(observed step for the chain's stages): "
+                      + ", ".join(f"{k} {v:.0f}" for k, v in cyc.items())
+                      + f"; loop {st['loop_cycles_per_step']:.0f} a step, "
+                      f"{st['loop_cycles_per_step'] / N_MATURITIES:.0f} an update; "
+                      f"{st['ms_with_stamps']:.4f} ms with the stamps")
+    report["k1_stage_clocks"] = k1_stages
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    k1_sass = sass_loop_counts(_build._lib_path("fused_kf"), needle="fused_kf")
+    if k1_sass is None:
+        print("  SASS: no cuobjdump in this toolkit: not measured")
+    else:
+        for name, v in k1_sass.items():
+            print(f"  SASS {name}: {v['instructions']} instructions, step loop {v['step_loop']}")
+    report["k1_sass"] = k1_sass
+    report["k1_chain_bound_ms"] = {k: v[0] for k, v in chain.items()}
     _, vag32 = optimize.fused_objectives(spec, panel32, 0, T_MONTHS)
     for B in sizes:
         p32 = cons[B].to(f32)
@@ -1930,12 +2246,12 @@ def kalman_phases(yfm, dev, report):
             "ms": ms, "entry_ms": entry_ms, "plain_ms": plain_ms,
             "evals_per_s": B / (ms * 1e-3), "bytes": bytes_, "flops": flops,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "chain_ms": chain_ms(spec.state_dim, N_MATURITIES, T_MONTHS, clock_mhz)}
+            "chain_bound_ms": chain["AFNS5 float32"][0]}
         plain_txt = "" if plain_ms is None else f", plain {plain_ms:.1f} ms"
         print(f"  K1 B={B}: kernel {ms:.4f} ms ({B / (ms * 1e-3):.0f} evals/s), "
               f"entry point {entry_ms:.4f} ms{plain_txt}, "
               f"bound {bound_ms:.4f} ms ({flops / B:.0f} flop/draw), "
-              f"serial-chain estimate {shapes[str(B)]['chain_ms']:.4f} ms")
+              f"latency-chain bound {chain['AFNS5 float32'][0]:.4f} ms")
 
         args = G.core_inputs(spec, p32, panel32, 0, T_MONTHS)
         bufs = G.lay_out(*args)
@@ -1977,7 +2293,6 @@ def kalman_phases(yfm, dev, report):
     # TVλ on phase 3's DNS panel: K1-TVλ beside K3f and K3b in the same
     # call, both Jacobian settings; the plain versions once, at B=1024 under
     # the spec's default (the reference's Jacobian)
-    dns_panel32 = torch.as_tensor(dns_panel, device=dev, dtype=f32)
     for exact in (False, True):
         s32 = dataclasses.replace(tvl32, exact_jacobian=exact)
         _, vag_tvl = optimize.fused_objectives(s32, dns_panel32, 0, T_MONTHS)
@@ -2160,10 +2475,12 @@ def kalman_phases(yfm, dev, report):
     sim = simulate_panel(spec64, draws[1024][0].cpu().numpy(), seed=9)
     starts = make_param_batch(spec.n_params, S, seed=11)
     fits = {"AFNS5": full_width_fit(yfm, optimize, spec, spec64, sim, starts, dev)}
+    check_parent_fit("estimate AFNS5", fits["AFNS5"]["record"])
     begin_phase(f"[7] estimate: TVλ, N=20, T=360, S={S}, max_iters=50")
     tvl_starts = kalman_draws(tvl64, S, np.random.default_rng(13), TVL_DELTA)
     sim_tvl = simulate_panel(tvl64, tvl_starts[0], seed=17)
     fits["TVλ"] = full_width_fit(yfm, optimize, tvl32, tvl64, sim_tvl, tvl_starts, dev)
+    check_parent_fit("estimate TVλ", fits["TVλ"]["record"])
     report["estimate"] = fits
 
     mats6 = tuple(np.array([3, 12, 36, 84, 180, 360]) / 12.0)
@@ -2171,7 +2488,7 @@ def kalman_phases(yfm, dev, report):
     # for 25 backtracks; from σ² = 1 it moves
     for code, obs_var in (("1C", 0.25), ("TVλ", 1.0)):
         print(f'  "{code}", N=6, T=60, S=3: the card against the CPU')
-        small_fit(yfm, optimize, code, mats6, obs_var)
+        check_parent_fit(f"estimate {code} N=6", small_fit(yfm, optimize, code, mats6, obs_var))
 
     # ---- 8. rolling-window re-estimation ---------------------------------------------
     W, S8 = 8, 32
@@ -2182,6 +2499,8 @@ def kalman_phases(yfm, dev, report):
                                           ("TVλ", tvl32, sim_tvl, tvl_starts[:S8])):
         report["estimate_windows"][label] = windows_fit(yfm, optimize, label, s32, sim_np,
                                                         starts_np, ends)
+        check_parent_fit(f"estimate_windows {label}",
+                         report["estimate_windows"][label]["record"])
 
     head = shapes["1024"]
     kernels = [{
@@ -2192,6 +2511,9 @@ def kalman_phases(yfm, dev, report):
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "shapes": shapes,
+        "chain_bound_ms": report["k1_chain_bound_ms"],
+        "layouts": {key: v["ms"] for key, v in k1_layouts.items()},
+        "pick": {key: v["pick"] for key, v in k1_layouts.items()},
     }]
     pairs = (("K2f", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:127", "AFNS5"),
              ("K2b", "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:181", "AFNS5"),

@@ -76,6 +76,118 @@ def test_fused_kf_matches_plain_version(card, code):
         np.testing.assert_allclose(got64.cpu().numpy(), ref, rtol=1e-9)
 
 
+_KF_CASES = ("AFNS5", "1C NaN columns, invalid draw", "TVλ exact", "TVλ reference",
+             "AFNS5 per-draw windows")
+
+
+def _kf_case(card, case, B, dtype):
+    """K1's inputs for one case of the layout test: N=6, T=40."""
+    import dataclasses
+
+    rng = np.random.default_rng(len(case) + B)
+    code = case.split()[0]
+    spec, _ = P.create_model(code, MATS, float_type="float64")
+    if code == "TVλ":
+        spec = dataclasses.replace(spec, exact_jacobian=case.endswith("exact"))
+    T = 40
+    p = _draws(spec, B, rng)
+    data = 0.5 * rng.standard_normal((len(MATS), T)) + 4
+    starts = ends = None
+    if code == "TVλ":
+        lo, hi = spec.layout["delta"]
+        p[:, lo:hi] = [0.4, -0.1, 0.05, 0.1 * np.log(0.49)]
+        p[:, lo:hi] += 0.02 * rng.standard_normal((B, hi - lo))
+    if "NaN" in case:
+        data[:, 20] = np.nan
+        data[1, 25] = np.nan
+        p[B // 2] = np.nan
+    if "windows" in case:
+        starts = torch.as_tensor(rng.integers(0, 10, B), device=card)
+        ends = torch.as_tensor(rng.integers(25, T + 1, B), device=card)
+    params, data, starts, ends = fused_kf._prepare(
+        spec, torch.as_tensor(p, device=card), torch.as_tensor(data, device=card), starts,
+        ends, None, dtype)
+    return fused_kf.kernel_inputs(spec, params, data, 1, T - 2, starts, ends)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 256, 1024])
+@pytest.mark.parametrize("case", _KF_CASES)
+@pytest.mark.parametrize("layout", ["warp", "octet"])
+def test_fused_kf_layouts_equal(card, layout, case, B, dtype):
+    """K1 with 32 or 8 lanes a draw against one thread a draw on the same
+    inputs, bit for bit (torch.equal: the same −inf draws and every finite
+    bit): NaN columns as predict-only steps, an invalid draw, both TVλ
+    Jacobians, a shared window and one per draw."""
+    inputs = _kf_case(card, case, B, dtype)
+    thread = fused_kf.launch(inputs, layout="thread").clone()
+    got = fused_kf.launch(inputs, layout=layout)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, thread)
+    if "NaN" in case:
+        assert got[B // 2] == -np.inf
+    if B > 1:
+        assert bool(torch.isfinite(got).sum() >= B - 1)
+
+
+@pytest.mark.cuda
+def test_fused_kf_pick_and_a_forced_layouts_refusal(card):
+    """The pick follows the batch (a group layout for the few draws of a
+    line search, the thread layout at 16,384); a layout that cannot launch
+    — 8 lanes a draw when four draws' rows of 1,200 maturities pass the
+    block's shared memory — raises and launches nothing, while the pick
+    (one draw's rows fit a warp's block) and the thread layout run the same
+    inputs to the same bits."""
+    small = _kf_case(card, "AFNS5", 1, torch.float32)
+    assert fused_kf.layout_of(small) in ("warp", "octet")
+    large = _kf_case(card, "AFNS5", 16384, torch.float32)
+    assert fused_kf.layout_of(large) == "thread"
+    mats = tuple(np.linspace(0.25, 30.0, 1200))
+    spec, _ = P.create_model("1C", mats, float_type="float64")
+    rng = np.random.default_rng(3)
+    p = torch.as_tensor(_draws(spec, 2, rng), device=card)
+    data = torch.as_tensor(0.5 * rng.standard_normal((len(mats), 4)) + 4, device=card)
+    wide = fused_kf.kernel_inputs(spec, p, data, 0, 4)
+    launches = fused_kf.batched_loglik.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fused_kf.launch(wide, layout="octet")
+    assert fused_kf.batched_loglik.launches == launches
+    assert fused_kf.layout_of(wide) == "warp"
+    picked = fused_kf.launch(wide).clone()
+    got = fused_kf.launch(wide, layout="thread")
+    torch.cuda.synchronize()
+    assert torch.equal(picked, got)
+    ref = fused_kf.batched_loglik_reference(spec, p, data).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, pick", [(256, "warp"), (1024, "thread")])
+def test_fused_kf_pick_fits_many_maturities(card, B, pick):
+    """360 monthly maturities in float64: a warp's block holds one AFNS5
+    draw's rows and 256 such blocks fit the card at once, but four draws'
+    rows pass a block's shared memory, so 1,024 draws take the thread
+    layout where the batch alone would pick 8 lanes a draw.  The picked
+    launch runs, equals the thread layout bit for bit and agrees with the
+    plain version."""
+    mats = tuple(np.arange(1, 361) / 12.0)
+    spec, _ = P.create_model("AFNS5", mats, float_type="float64")
+    rng = np.random.default_rng(B)
+    p = torch.as_tensor(_draws(spec, B, rng), device=card)
+    data = torch.as_tensor(0.5 * rng.standard_normal((len(mats), 12)) + 4, device=card)
+    inputs = fused_kf.kernel_inputs(spec, p, data, 0, 12)
+    assert fused_kf.layout_of(inputs) == pick
+    got = fused_kf.launch(inputs).clone()
+    thread = fused_kf.launch(inputs, layout="thread")
+    torch.cuda.synchronize()
+    assert torch.equal(got, thread)
+    assert bool(torch.isfinite(got).all())
+    ref = fused_kf.batched_loglik_reference(spec, p, data).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-9)
+
+
 def _raw_value_and_grad(spec, p, data, dtype, **kw):
     pt = p.detach().to(dtype).requires_grad_(True)
     v = P.batched_loglik_diff(spec, pt, data.to(dtype), dtype=dtype, **kw)

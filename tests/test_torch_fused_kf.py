@@ -154,3 +154,22 @@ def test_kernel_inputs_lay_draws_minor(code, rng):
     for x in inp.buffers:
         assert x is None or x.is_contiguous()
 
+
+
+def test_launch_refuses_an_unknown_layout_before_any_build(monkeypatch, rng):
+    """``launch(layout=)`` takes None (the kernel's pick), "thread", "warp"
+    or "octet"; any other name raises ValueError before a library is built
+    or loaded."""
+    _, ts = _specs("1C")
+    p = torch.as_tensor(_params(ts, 2, rng))
+    inputs = fused_kf.kernel_inputs(ts, p, torch.as_tensor(_panel(rng, 12)), 0, 12)
+
+    def no_build(name):
+        raise AssertionError(f"built or loaded {name}")
+
+    monkeypatch.setattr(fused_kf, "load", no_build)
+    launches = fused_kf.batched_loglik.launches
+    for bad in ("block", "Warp", 2):
+        with pytest.raises(ValueError, match="layout must be one of"):
+            fused_kf.launch(inputs, layout=bad)
+    assert fused_kf.batched_loglik.launches == launches

@@ -30,12 +30,22 @@ BUILD_DIR = _PKG / "_kernels_build"
 _PF_ARGS = ([ctypes.c_int] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_double] * 2
             + [ctypes.c_void_p] * 6)
 
+#: yfm_fused_kf's arguments up to ``out``: dtype, ms, tvl, exact, B, N, T; Z, d,
+#: phi, delta, om, ovar, b0, p0, data, masks, win, mats, out
+_KF_ARGS = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 13
+
 #: kernel library name -> (source file under csrc/, {C entry point: argtypes},
 #: extra nvcc flags); every pointer and the stream are c_void_p so ctypes never
 #: cuts them to 32 bits, and host constants are c_double
 KERNELS = {
     "fused_kf": ("fused_kf.cu", {
-        "yfm_fused_kf": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14}),
+        "yfm_fused_kf": _KF_ARGS + [ctypes.c_int, ctypes.c_void_p],
+        "yfm_fused_kf_layout": [ctypes.c_int] * 5}),
+    # K1 again with clock64() stamps between the stages of a step: chip_smoke.py's
+    # stage breakdown loads it, batched_loglik never does
+    "fused_kf_clocks": ("fused_kf.cu", {
+        "yfm_fused_kf_clocks": _KF_ARGS + [ctypes.c_int] + [ctypes.c_void_p] * 2},
+        ("-DYFM_KF_CLOCKS",)),
     "fused_kf_grad": ("fused_kf_grad.cu", {
         "yfm_kf_grad_fwd": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 14,
         "yfm_kf_grad_bwd": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 22,

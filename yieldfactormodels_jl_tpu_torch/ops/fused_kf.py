@@ -2,9 +2,11 @@
 
 Counterpart of ``yieldfactormodels_jl_tpu/ops/pallas_kf.py``.  The kernel,
 ``csrc/fused_kf.cu``, replaces the Pallas TPU kernel ``pallas_kf._kernel``:
-one CUDA thread per parameter draw runs the whole T-step sequential-
-observation recursion in registers, the shared panel staged through shared
-memory.  As in the JAX package, unpacking, the unconditional start and the
+each parameter draw's whole T-step sequential-observation recursion runs in
+registers, on one thread (large batches, many maturities) or on 32 or 8
+lanes that share its gains (batches that leave the card latency-bound), the
+shared panel staged through shared memory; every layout returns the same
+bits.  As in the JAX package, unpacking, the unconditional start and the
 Z/d setup stay batched tensor ops outside the kernel.
 
 ``batched_loglik`` takes a (B, n_params) batch of *constrained* draws and an
@@ -118,19 +120,50 @@ def kernel_inputs(spec: ModelSpec, params, data, start, end, starts=None,
     return KernelInputs(ints, buffers, torch.empty(B, dtype=dtype, device=device))
 
 
-def launch(inputs: KernelInputs) -> torch.Tensor:
+#: ``launch``'s layouts: None picks by the batch, the others force one
+_LAYOUTS = {None: 0, "thread": 1, "warp": 2, "octet": 3}
+_LAYOUT_NAMES = {1: "thread", 2: "warp", 3: "octet"}
+
+
+def _layout_code(layout) -> int:
+    if layout not in _LAYOUTS:
+        raise ValueError(f"layout must be one of {list(_LAYOUTS)}; got {layout!r}")
+    return _LAYOUTS[layout]
+
+
+def launch(inputs: KernelInputs, layout=None) -> torch.Tensor:
     """One launch of the CUDA kernel on PyTorch's current stream; returns
-    ``inputs.out``.  Raises if the launch is refused."""
+    ``inputs.out``.  ``layout`` None lets the kernel pick by the batch (32
+    or 8 lanes a draw while the batch leaves the card latency-bound and
+    its blocks, whose shared memory grows with the maturities, fit the
+    card at once; else a thread a draw); "thread", "warp" or "octet" forces
+    one, so that tests can hold the layouts against each other.  Raises if
+    the launch is refused: a forced layout that cannot launch is never
+    replaced."""
+    code = _layout_code(layout)
     out = inputs.out
     ptrs = [None if x is None else x.data_ptr() for x in inputs.buffers]
     lib = load("fused_kf")
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = lib.yfm_fused_kf(*inputs.ints, *ptrs, out.data_ptr(), stream)
+        err = lib.yfm_fused_kf(*inputs.ints, *ptrs, out.data_ptr(), code, stream)
     if err != 0:
         raise RuntimeError(f"fused_kf kernel launch failed: cudaError {err}")
     batched_loglik.launches += 1
     return out
+
+
+def layout_of(inputs: KernelInputs) -> str:
+    """The layout ``launch`` picks for these inputs: "thread", "warp" or
+    "octet", by the batch, the state dimension, the maturities and the
+    real type."""
+    dtype, ms, _, _, B, N, T = inputs.ints
+    lib = load("fused_kf")
+    with torch.cuda.device(inputs.out.device):
+        code = lib.yfm_fused_kf_layout(dtype, ms, B, N, T)
+    if code < 0:
+        raise RuntimeError(f"fused_kf layout query failed: cudaError {-code}")
+    return _LAYOUT_NAMES[code]
 
 
 def _batched_loglik(spec: ModelSpec, params_batch, data, start=0, end=None,
