@@ -44,7 +44,12 @@ Phases (any failure raises and the script exits non-zero):
    the layout the kernel picks; at B=1 K1's cycles a step by stage in each
    layout and type from the clock build (``fused_kf_clocks``), its
    latency-chain bound (``kf_chain_ms``, at K4's probe's latencies) and the
-   SASS counts of its instances.
+   SASS counts of its instances.  K2b (AFNS5) and K3b (TVλ, the reference's
+   Jacobian) by layout and store, each in turns, with the pick, at B = 1,
+   3, 256, 1024, 4096 and 16384 (float32), their cycles by stage from the
+   clock build (``fused_kf_grad_clocks``) for the thread layout and the
+   pick at B = 1, 256 and 1024, and the adjoint's latency-chain bound
+   (``kf_grad_chain_ms``).
 6. gradient pairs at full width — through the fused objective's
    value-and-gradient (launch counts 1 and 1, plain versions 0): AFNS5,
    B=1024 (K2f + K2b) and TVλ, B=1024, under both exact_jacobian settings
@@ -63,7 +68,16 @@ Phases (any failure raises and the script exits non-zero):
    (float64) of the raw parameters, and for float32 agreement with the
    plain float64 gradient to that quarter; the counts are printed.  There
    the float32 gradient is also held against the plain float32 one.  Then "1C" and TVλ with interior NaN columns, an
-   invalid draw and per-draw windows, B=2048.
+   invalid draw and per-draw windows, B=2048.  On every case every adjoint
+   layout and store (warp and octet keeping the segment, one step or 9
+   steps) against the thread layout bit for bit on the raw leaves, float32
+   and float64 (torch.equal); the same on a four-state constant
+   measurement (Svensson's loadings, the Ms = 4 instance, with the pick's
+   float64 leaves against the plain adjoint) and TVλ under both Jacobians
+   with per-draw windows, B=512; and AFNS5 at 360 maturities in
+   float64, where 64 draws pick the warp keeping a few steps (its leaves
+   against the plain adjoint) and 256 the thread layout, and a forced octet
+   or a forced segment store raises without launching.
 7. the fused MLE — ``estimate`` at N=20, T=360, S=256 starts,
    max_iters=50, with the launch counts set to 0 just before it: K1 ≥ 1,
    the forward and adjoint kernels once per value-and-gradient call, plain
@@ -303,6 +317,40 @@ def simulate_panel(spec64, p, seed, T=T_MONTHS):
 
 #: TVλ transition intercept: a steady state (4, −1, 0.5, ln 0.49) under Φ ≈ 0.9
 TVL_DELTA = [0.4, -0.1, 0.05, 0.1 * math.log(0.49)]
+
+
+def svensson_inputs(B, data, rng, win=None):
+    """The arguments of ``fused_kf_grad.forward_reference`` for a four-state
+    constant measurement, Svensson's loadings (level, slope and two
+    curvatures at λ₁ = 0.6, λ₂ = 0.15 a year) at this file's maturities, B
+    stationary draws of Φ, δ, Ω and σ² from ``rng``, the unconditional start
+    and ``data`` (N, T) with the per-draw ``win`` (starts, ends) or the
+    whole panel: the Ms = 4 instance of K2f/K2b, which no model of the port
+    reaches yet."""
+    dev, dtype = data.device, data.dtype
+    tau = np.asarray(MATURITIES, dtype=np.float64)
+    x1, x2 = 0.6 * tau, 0.15 * tau
+    slope = (1 - np.exp(-x1)) / x1
+    Z = np.stack([np.ones_like(tau), slope, slope - np.exp(-x1),
+                  (1 - np.exp(-x2)) / x2 - np.exp(-x2)], -1)    # (N, 4)
+    Ms = 4
+    phi = 0.9 * np.eye(Ms) + 0.01 * rng.standard_normal((B, Ms, Ms))
+    delta = np.array([0.4, -0.1, 0.05, 0.02]) + 0.02 * rng.standard_normal((B, Ms))
+    om = np.tile(np.diag([0.01, 0.02, 0.03, 0.03]), (B, 1, 1))
+    beta0 = np.linalg.solve(np.eye(Ms) - phi, delta[..., None])[..., 0]
+    P0 = np.tile(np.eye(Ms), (B, 1, 1))
+    for _ in range(200):                                        # P = ΦPΦᵀ + Ω
+        P0 = phi @ P0 @ phi.transpose(0, 2, 1) + om
+    T = data.shape[1]
+
+    def t(x):
+        return torch.as_tensor(x, device=dev, dtype=dtype)
+
+    masks = torch.ones(T, 2, dtype=torch.uint8, device=dev)
+    masks[0, 1] = masks[T - 1, 1] = 0
+    win_t = None if win is None else torch.stack([win[0], win[1]]).to(torch.int32)
+    return (t(np.tile(Z, (B, 1, 1))), t(np.zeros((B, Z.shape[0]))), t(phi), t(delta), t(om),
+            t(np.full(B, 0.01)), t(beta0), t(P0), data, masks, win_t)
 
 
 def kalman_draws(spec, B, rng, delta):
@@ -668,6 +716,152 @@ def kf_stage_clocks(fused_kf, inputs, layout, reps=3):
                 for q, name in enumerate(KF_STAGES)}
     return {"cycles_per_step": per_step, "loop_cycles_per_step": loop / steps,
             "steps": steps, "observed_steps": n_obs, "ms_with_stamps": ms}
+
+
+#: the adjoints' (K2b/K3b) stages in the order of fused_kf_grad.cu's KfgStage
+KFG_STAGES = ("recompute", "pre_pass", "update", "row", "transition", "stamp_pair")
+
+
+def kfg_stage_clocks(bufs, chk, g, tvl, exact, layout, store=None, reps=3):
+    """The adjoint's cycles by stage for draw 0 (the clock build,
+    ``fused_kf_grad_clocks``: the same source with clock64() stamps between
+    the sweep's stages; lane 0's in a group layout), from the last of
+    ``reps`` launches on ``lay_out``/``lay_out_tvl`` buffers: each stage's
+    cycles a step (over every step of the sweep) and the sweep's.  Also the
+    launch's time with the stamps on."""
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    lib = _build.load("fused_kf_grad_clocks")
+    dev, dtype = bufs[0].device, bufs[0].dtype
+    if tvl:
+        (code, B, N, T, S, nC), Ms = G._sizes_tvl(bufs), 4
+        Z = d = None
+        phi, delta, om, ovar, _, _, data, masks, win, mats = bufs
+        rows = (None, None, 16, 4, 16, 1, 4, 16)
+    else:
+        code, Ms, B, N, T, S, nC = G._sizes(bufs)
+        Z, d, phi, delta, om, ovar, _, _, data, masks, win = bufs
+        mats = None
+        rows = (N * Ms, N, Ms * Ms, Ms, Ms * Ms, 1, Ms, Ms * Ms)
+    grads = [None if r is None else torch.empty(r, B, dtype=dtype, device=dev) for r in rows]
+    D = Ms + Ms * Ms
+    seg, pre = G._scratch(bufs, tvl, layout, (S * D, N * D), dtype, dev)
+    lay, keep = G._choice_codes(layout, store)
+    clocks = torch.zeros(len(KFG_STAGES) + 3, dtype=torch.int64, device=dev)
+    ptrs = G._ptrs([Z, d, mats, phi, delta, om, ovar, data, masks, win, chk, g.contiguous(),
+                    *grads, seg, pre])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.yfm_kf_grad_bwd_clocks(code, int(tvl), int(exact), Ms, B, N, T, S, nC, *ptrs,
+                                         lay, keep(S), clocks.data_ptr(), stream)
+        check(err == 0, f"adjoint clock build launch failed: cudaError {err}")
+
+    ms = cuda_ms(run, reps=reps, warmup=1)
+    c = clocks.cpu().tolist()
+    steps, n_obs, loop = c[-3:]
+    per_step = {name: c[q] / max(steps, 1) for q, name in enumerate(KFG_STAGES)}
+    return {"cycles_per_step": per_step, "loop_cycles_per_step": loop / max(steps, 1),
+            "steps": steps, "observed_steps": n_obs, "ms_with_stamps": ms}
+
+
+#: the adjoints' layouts and what a group layout keeps of each segment
+#: (the whole segment, one step, 9 of its 19 steps at T = 360: the pick's
+#: store at 1,024 draws), "thread" first: the others are held against it;
+#: and the batches [5] times them at
+KFG_VARIANTS = (("thread", None), ("warp", "segment"), ("warp", "step"), ("warp", 9),
+                ("octet", "segment"), ("octet", "step"), ("octet", 9))
+KFG_TIMING_BATCHES = (1, 3, 256, 1024, 4096, 16384)
+
+
+def kfg_name(layout, store):
+    if store is None:
+        return layout
+    return f"{layout}/{store}" if isinstance(store, str) else f"{layout}/{store} steps"
+
+
+def kfg_launch(bufs, chk, g, tvl, exact, layout=None, store=None):
+    """One adjoint launch (K3b when ``tvl``, else K2b) in a forced or the
+    picked layout; returns its leaves."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    if tvl:
+        return G.launch_backward_tvl(bufs, exact, chk, g, layout=layout, store=store)
+    return G.launch_backward(bufs, chk, g, layout=layout, store=store)
+
+
+def kfg_variants(bufs, chk, g, tvl, exact):
+    """Each variant of KFG_VARIANTS that launches on these buffers, with its
+    leaves: a forced group layout whose draws' states pass a block's shared
+    memory is refused (cudaErrorInvalidValue), launches nothing and is left
+    out."""
+    out = {}
+    for layout, store in KFG_VARIANTS:
+        try:
+            leaves = kfg_launch(bufs, chk, g, tvl, exact, layout, store)
+        except RuntimeError as e:
+            check("cudaError 1" in str(e) and layout != "thread",
+                  f"{kfg_name(layout, store)}: {e}")
+            continue
+        out[(layout, store)] = [x.clone() for x in leaves]
+    return out
+
+
+def kfg_layouts_equal(bufs, chk, g, tvl, exact, what):
+    """Every adjoint layout (and store) that launches against the thread
+    layout on the same buffers, checkpoints and cotangent, bit for bit on
+    every leaf (torch.equal), and the pick among them.  Returns the picked
+    plan and its leaves."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    outs = kfg_variants(bufs, chk, g, tvl, exact)
+    ref = outs.pop(("thread", None))
+    pick = G.backward_plan(bufs, tvl)
+    outs[pick] = picked = kfg_launch(bufs, chk, g, tvl, exact)
+    for (layout, store), got in outs.items():
+        for k, (a, r) in enumerate(zip(got, ref)):
+            n_diff = int((a != r).sum())
+            check(torch.equal(a, r), f"{what}: {kfg_name(layout, store)} differs from the "
+                  f"thread layout on leaf {k}, {n_diff} of {r.numel()} entries")
+    names = [kfg_name(*v) for v in outs]
+    print(f"  {what}: {', '.join(names)} == thread bit for bit on all {len(ref)} leaves, "
+          f"{ref[0].shape[1]} draws; picks {kfg_name(*pick)}")
+    return pick, picked
+
+
+def kf_grad_chain_ms(Ms, N, steps, obs_steps, lat, clock_mhz, tvl=False):
+    """The adjoint's latency-chain bound for one draw (K2b, K3b when
+    ``tvl``): the forward recompute's dependent path (``kf_chain_counts``,
+    every step once) and then the reverse sweep's, at the cycles of each
+    operation class that K4's probe measures, at the card's maximum SM
+    clock.  The reverse path, every sum in the thread kernel's order and
+    each independent operation on its own unit, no layout's broadcasts:
+    - an observed update's adjoint (the next waits for P̄): K̄ (Ms FMAs),
+      the K̄·K sum (Ms FMAs), f̄ (one FMA), z̄P += f̄z (one FMA), P̄ += z z̄Pᵀ
+      (one FMA): 2Ms + 3 multiply-class operations; b̄, z̄P's other terms,
+      z̄ and the ∂Z, ∂d sums run beside it;
+    - an observed step: the de-symmetrization (add, mul), and for TVλ the
+      row adjoint's tail past P̄'s path at the step's end (a mul-class
+      operation for z̄ past z̄P, c, two for β̄₃, the fold into β̄: 4 and an
+      add);
+    - every step: the transition adjoint's P̄ path, ΦᵀP̄ then ·Φ (2Ms).
+    The recompute of a segment could run beside the sweep of the next; the
+    bound counts them in series, as every layout runs them.  Returns (ms,
+    cycles of an observed step, forward and reverse)."""
+    fwd_update, fwd_obs, fwd_trans = kf_chain_counts(Ms, tvl)
+    rev_update = {"mul": 2 * Ms + 3}
+    rev_obs = {"add": 1 + int(tvl), "mul": 1 + 4 * int(tvl)}
+    rev_trans = {"mul": 2 * Ms}
+
+    def cycles(counts):
+        return sum(v * lat[k] for k, v in counts.items())
+
+    obs_step = (N * (cycles(fwd_update) + cycles(rev_update)) + cycles(fwd_obs)
+                + cycles(rev_obs))
+    every = cycles(fwd_trans) + cycles(rev_trans)
+    total = obs_steps * obs_step + steps * every
+    return total / (clock_mhz * 1e6) * 1e3, obs_step + every
 
 
 def kf_chain_counts(Ms, tvl=False):
@@ -2338,6 +2532,71 @@ def kalman_phases(yfm, dev, report):
                   f"{vag_ms:.4f} ms ({B / (vag_ms * 1e-3):.0f} grad evals/s)")
     report["tvl_shapes"] = tvl_shapes
 
+    # K2b and K3b by layout and store, each in turns in this one call (f32;
+    # AFNS5 on this file's panel, TVλ under the reference's Jacobian on
+    # phase 3's DNS panel), with the pick and the bound; the stage clocks of
+    # the thread layout and of the pick at B = 1 and 256; the adjoint's
+    # latency-chain bound
+    kfg_chain = {}
+    for fam, Ms, tvl in (("AFNS5", spec.state_dim, False), ("TVλ", 4, True)):
+        for dtype in (f32, f64):
+            kfg_chain[f"{fam} {str(dtype)[6:]}"] = kf_grad_chain_ms(
+                Ms, N_MATURITIES, T_MONTHS, T_MONTHS, lats[dtype], clock_mhz, tvl)
+    for key, (ms_c, cyc) in kfg_chain.items():
+        print(f"  adjoint latency-chain bound {key}, one draw: {ms_c:.4f} ms ({cyc:.0f} cycles "
+              f"an observed step, forward and reverse, at {clock_mhz:.0f} MHz)")
+    kfg_layouts, kfg_stages = {}, {}
+    for fam, s32, pan, tvl in (("AFNS5", spec, panel32, False),
+                               ("TVλ", tvl_ref32, dns_panel32, True)):
+        name = "K3b" if tvl else "K2b"
+        for B in KFG_TIMING_BATCHES:
+            args = G.core_inputs(s32, k1_draws(fam, B), pan, 0, T_MONTHS)
+            bufs = G.lay_out_tvl(*args[:10]) if tvl else G.lay_out(*args)
+            out, chk = G.launch_forward_tvl(bufs, False) if tvl else G.launch_forward(bufs)
+            g = torch.ones(B, device=dev, dtype=f32)
+            grads = kfg_launch(bufs, chk, g, tvl, False)
+            # the variants that launch, and the pick (layout None) where it is
+            # none of them
+            plan = G.backward_plan(bufs, tvl)
+            pick = kfg_name(*plan)
+            variants = list(kfg_variants(bufs, chk, g, tvl, False))
+            names = [kfg_name(*v) for v in variants]
+            if pick not in names:
+                variants.append((None, None))
+                names.append(pick)
+            reps = 3 if B <= 1024 else 2 if B <= 4096 else 1
+            turns = {k: [] for k in names}
+            for _ in range(2):
+                for k, v in zip(names, variants):
+                    turns[k].append(cuda_ms(lambda: kfg_launch(bufs, chk, g, tvl, False, *v),
+                                            reps=reps, warmup=1))
+            ms = {k: sum(v) / len(v) for k, v in turns.items()}
+            _, (bb, bf), _ = grad_kernel_work(bufs, pan, out, chk, grads, tvl)
+            bound_ms, bound_by = bound(bb, bf)
+            key = f"{fam} {B}"
+            kfg_layouts[key] = {"kernel": name, "ms": ms, "turns": turns, "pick": pick,
+                                "pick_ms": ms[pick], "pick_over_thread": ms[pick] / ms["thread"],
+                                "bound_ms": bound_ms, "bound_by": bound_by}
+            print(f"  {name} {fam} B={B}: " + ", ".join(
+                f"{k} {v:.4f} ms ({' / '.join(f'{t:.4f}' for t in turns[k])})"
+                for k, v in ms.items())
+                + f"; picks {pick} ({ms[pick] / ms['thread']:.3f}× thread); bound "
+                f"{bound_ms:.4f} ms ({bound_by})")
+            if B in (1, 256, 1024):  # the thread layout and the pick (layout None)
+                for label, v in (("thread", ("thread", None)), (pick, (None, None))):
+                    st = kfg_stage_clocks(bufs, chk, g, tvl, False, *v)
+                    kfg_stages[f"{fam} B={B} {label}"] = st
+                    cyc = st["cycles_per_step"]
+                    print(f"  {name} {fam} f32 B={B} {label}: cycles a step "
+                          + ", ".join(f"{k} {c:.0f}" for k, c in cyc.items())
+                          + f"; sweep {st['loop_cycles_per_step']:.0f} a step, "
+                          f"{st['loop_cycles_per_step'] / N_MATURITIES:.0f} an update "
+                          f"({st['observed_steps']} of {st['steps']} steps observed); "
+                          f"{st['ms_with_stamps']:.4f} ms with the stamps")
+    report["kfg_layouts"] = kfg_layouts
+    report["kfg_stage_clocks"] = kfg_stages
+    report["kfg_chain_bound_ms"] = {k: v[0] for k, v in kfg_chain.items()}
+
     # ---- 6. gradient pairs at full width ---------------------------------------
     begin_phase("[6] gradient pair: K2f + K2b against the plain versions")
     grad_errs = {"K2f": [], "K2b": [], "K2b_leaves": [],
@@ -2453,6 +2712,16 @@ def kalman_phases(yfm, dev, report):
         grad_errs[names[1] + "_leaves"].append(leaves_close(
             got_leaves, ref_leaves, 1e-6, 1e-9,
             f"{what}: f64 {names[1]} leaves vs plain f64 adjoint", rows=d64))
+        # every adjoint layout against the thread layout on the raw leaves,
+        # float64 (the inputs above) and float32 (the same draws)
+        exact = bool(args64[10]) if tvl else False
+        kfg_layouts_equal(bufs64, chk64, cot, tvl, exact, f"{what}: f64 {names[1]} layouts")
+        args32 = [a.detach() if torch.is_tensor(a) else a for a in G.core_inputs(
+            s32, yfm.transform_params(s32, X32), data32, 0, T_MONTHS, **wkw)]
+        bufs32 = G.lay_out_tvl(*args32[:10]) if tvl else G.lay_out(*args32)
+        ll32, chk32 = G.launch_forward_tvl(bufs32, exact) if tvl else G.launch_forward(bufs32)
+        cot32 = torch.where(torch.isfinite(ll32), cot.to(f32), torch.zeros_like(ll32))
+        kfg_layouts_equal(bufs32, chk32, cot32, tvl, exact, f"{what}: f32 {names[1]} layouts")
         if win is not None:
             bad = (~fin).nonzero().flatten().tolist()
             check(bad == [5], f"{what}: invalid draws {bad}, expected [5]")
@@ -2466,6 +2735,73 @@ def kalman_phases(yfm, dev, report):
             grads_close(g_ref[sub][keep], g_auto[keep], 1e-6,
                         f"{what}: plain f64 adjoint vs autograd of the plain recursion, "
                         f"B=64 ({int(keep.sum())} determined)")
+
+    # the adjoints' layouts on the cases left: a four-state constant
+    # measurement (Svensson's loadings), TVλ under both Jacobians with
+    # per-draw windows, each in both types with the f64 leaves against the
+    # plain adjoint; and 360 maturities in float64, where no group layout
+    # fits 256 draws at once and a forced one that cannot fit raises
+    for what, tvl, exact in (("Svensson Ms=4, per-draw windows, B=512", False, False),
+                             ("TVλ exact_jacobian=False, per-draw windows, B=512", True, False),
+                             ("TVλ exact_jacobian=True, per-draw windows, B=512", True, True)):
+        for dtype in (f64, f32):
+            if tvl:
+                s_t = dataclasses.replace(tvl64 if dtype == f64 else tvl32, exact_jacobian=exact)
+                p_t = torch.as_tensor(kalman_draws(tvl64, 512, np.random.default_rng(21),
+                                                   TVL_DELTA), device=dev, dtype=dtype)
+                args = [a.detach() if torch.is_tensor(a) else a for a in G.core_inputs(
+                    s_t, p_t, torch.as_tensor(dns_panel, device=dev, dtype=dtype), 0, T_MONTHS,
+                    wins[0][:512], wins[1][:512])]
+                bufs = G.lay_out_tvl(*args[:10])
+                ll, chk = G.launch_forward_tvl(bufs, exact)
+            else:
+                args = svensson_inputs(512, torch.as_tensor(panel, device=dev, dtype=dtype),
+                                       np.random.default_rng(22), (wins[0][:512], wins[1][:512]))
+                bufs = G.lay_out(*args)
+                ll, chk = G.launch_forward(bufs)
+            fin = torch.isfinite(ll)
+            check(int(fin.sum()) >= 0.9 * ll.numel(), f"{what}: {int((~fin).sum())} draws −inf")
+            cot = torch.rand(ll.shape, generator=torch.Generator(device=dev).manual_seed(6),
+                             device=dev, dtype=dtype) + 0.5
+            cot = torch.where(fin, cot, torch.zeros_like(cot))
+            _, picked = kfg_layouts_equal(bufs, chk, cot, tvl, exact,
+                                          f"{what}: {str(dtype)[6:]} layouts")
+            if dtype == f64 and not tvl:  # TVλ with windows: the B=2048 case above
+                chk_ref = chk.T.reshape(512, G._seg(T_MONTHS)[1], -1)
+                ref = (G.adjoint_reference_tvl(*args[:4], *args[6:], chk_ref, cot) if tvl else
+                       G.adjoint_reference(*args[:6], *args[8:], chk_ref, cot))
+                leaves_close(picked, ref, 1e-6, 1e-9, f"{what}: f64 pick's leaves vs plain f64 "
+                             "adjoint")
+    mats360 = tuple(np.arange(1, 361) / 12.0)
+    spec360, _ = yfm.create_model("AFNS5", mats360, float_type="float64")
+    rng360 = np.random.default_rng(360)
+    data360 = torch.as_tensor(0.5 * rng360.standard_normal((360, 12)) + 4, device=dev)
+    for B, pick in ((64, "warp"), (256, "thread")):
+        p360 = yfm.params_from_jax(spec360, make_param_batch(spec360.n_params, B, seed=B))
+        args = G.core_inputs(spec360, p360, data360, 0, 12)
+        bufs = G.lay_out(*args)
+        ll, chk = G.launch_forward(bufs)
+        cot = torch.where(torch.isfinite(ll), torch.ones_like(ll), torch.zeros_like(ll))
+        plan = G.backward_plan(bufs)
+        check(plan[0] == pick and plan[1] != "segment", f"360 maturities f64 B={B}: picks "
+              f"{kfg_name(*plan)}, expected {pick} keeping less than the segment")
+        launches = G.launch_backward.launches
+        for layout, store in (("octet", None), ("warp", "segment")):
+            try:
+                G.launch_backward(bufs, chk, cot, layout=layout, store=store)
+            except RuntimeError as e:
+                check("cudaError 1" in str(e), f"360 maturities: {e}")
+            else:
+                check(False, f"360 maturities f64 B={B}: {kfg_name(layout, store)} launched")
+        check(G.launch_backward.launches == launches, "a refused launch was counted")
+        _, picked = kfg_layouts_equal(bufs, chk, cot, False, False,
+                                      f"360 maturities f64 B={B}")
+        if pick == "warp":
+            chk_ref = chk.T.reshape(B, G._seg(12)[1], -1)
+            leaves_close(picked, G.adjoint_reference(*args[:6], *args[8:], chk_ref, cot), 1e-6,
+                         1e-9, f"360 maturities f64 B={B}: pick's leaves vs plain f64 adjoint")
+        print(f"  360 maturities f64 B={B}: picks {kfg_name(*plan)}; octet and warp/segment "
+              f"refused, nothing launched")
 
     # ---- 7. the fused MLE ----------------------------------------------------------
     S = 256
@@ -2536,6 +2872,11 @@ def kalman_phases(yfm, dev, report):
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
             "shapes": by_shape}
         if name.endswith("b"):
+            fam = "AFNS5" if name == "K2b" else "TVλ"
+            entry["layouts"] = {k: v["ms"] for k, v in kfg_layouts.items() if v["kernel"] == name}
+            entry["pick"] = {k: v["pick"] for k, v in kfg_layouts.items() if v["kernel"] == name}
+            entry["chain_bound_ms"] = {k: v for k, v in report["kfg_chain_bound_ms"].items()
+                                       if k.startswith(fam)}
             entry["gradient_criterion"] = {
                 key: max(e[key] for e in errs_k)
                 for key in ("max_one_minus_cos", "max_norm_ratio_err")}

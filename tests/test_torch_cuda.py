@@ -275,6 +275,157 @@ def test_fused_kf_grad_leaves_match_the_plain_adjoint(card, code):
         assert (k[3] == 0).all()
 
 
+_KFG_CASES = ("AFNS5", "1C NaN columns, invalid draw, windows", "Svensson Ms=4 windows",
+              "TVλ exact windows", "TVλ reference windows")
+_KFG_GROUPS = (("warp", "segment"), ("warp", "step"), ("warp", 3), ("octet", "segment"),
+               ("octet", "step"), ("octet", 3))
+
+
+def _svensson(B, data, rng):
+    """The arguments of forward_reference for a four-state constant
+    measurement (Svensson's loadings at λ₁ = 0.6, λ₂ = 0.15, MATS) and B
+    stationary draws: the Ms = 4 instance of K2f/K2b, which no model of the
+    port reaches yet."""
+    tau = np.asarray(MATS)
+    x1, x2 = 0.6 * tau, 0.15 * tau
+    slope = (1 - np.exp(-x1)) / x1
+    Z = np.stack([np.ones_like(tau), slope, slope - np.exp(-x1),
+                  (1 - np.exp(-x2)) / x2 - np.exp(-x2)], -1)
+    phi = 0.9 * np.eye(4) + 0.01 * rng.standard_normal((B, 4, 4))
+    delta = 0.2 * rng.standard_normal((B, 4))
+    om = np.tile(0.01 * np.eye(4), (B, 1, 1))
+    P0 = np.tile(np.eye(4), (B, 1, 1))
+    for _ in range(100):
+        P0 = phi @ P0 @ phi.transpose(0, 2, 1) + om
+    beta0 = np.linalg.solve(np.eye(4) - phi, delta[..., None])[..., 0]
+
+    def t(x):
+        return torch.as_tensor(x, device=data.device, dtype=data.dtype)
+
+    return (t(np.tile(Z, (B, 1, 1))), t(np.zeros((B, len(MATS)))), t(phi), t(delta), t(om),
+            t(np.full(B, 0.01)), t(beta0), t(P0))
+
+
+def _kfg_case(card, case, B, dtype):
+    """An adjoint launch's inputs for one case of the layout test, N=6, T=40:
+    (buffers, checkpoints, cotangent, tvl, exact)."""
+    import dataclasses
+
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    rng = np.random.default_rng(len(case) + B)
+    code = case.split()[0]
+    T = 40
+    data = torch.as_tensor(0.5 * rng.standard_normal((len(MATS), T)) + 4, device=card,
+                           dtype=dtype)
+    if "NaN" in case:
+        data[:, 20] = float("nan")
+        data[1, 25] = float("nan")
+    win = {}
+    if "windows" in case:
+        win = {"starts": torch.as_tensor(rng.integers(0, 10, B), device=card),
+               "ends": torch.as_tensor(rng.integers(25, T + 1, B), device=card)}
+    tvl, exact = code == "TVλ", case.startswith("TVλ exact")
+    if code == "Svensson":
+        masks = torch.ones(T, 2, dtype=torch.uint8, device=card)
+        w = torch.stack([win["starts"], win["ends"]]).to(torch.int32)
+        bufs = G.lay_out(*_svensson(B, data, rng), data, masks, w)
+    else:
+        spec, _ = P.create_model(code, MATS, float_type="float64")
+        spec = dataclasses.replace(spec, exact_jacobian=exact)
+        p = _draws(spec, B, rng)
+        if tvl:
+            lo, hi = spec.layout["delta"]
+            p[:, lo:hi] = [0.4, -0.1, 0.05, 0.1 * np.log(0.49)]
+            p[:, lo:hi] += 0.02 * rng.standard_normal((B, hi - lo))
+        if "invalid" in case:
+            p[B // 2] = np.nan
+        args = G.core_inputs(spec, torch.as_tensor(p, device=card, dtype=dtype), data, 1, T - 1,
+                             **win)
+        bufs = G.lay_out_tvl(*args[:10]) if tvl else G.lay_out(*args)
+    ll, chk = G.launch_forward_tvl(bufs, exact) if tvl else G.launch_forward(bufs)
+    g = torch.as_tensor(rng.uniform(0.5, 1.5, B), device=card, dtype=dtype)
+    g = torch.where(torch.isfinite(ll), g, torch.zeros_like(g))
+    return bufs, chk, g, tvl, exact
+
+
+def _kfg(bufs, chk, g, tvl, exact, **kw):
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    if tvl:
+        return G.launch_backward_tvl(bufs, exact, chk, g, **kw)
+    return G.launch_backward(bufs, chk, g, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [3, 300])
+@pytest.mark.parametrize("case", _KFG_CASES)
+@pytest.mark.parametrize("layout, store", _KFG_GROUPS)
+def test_fused_kf_grad_layouts_equal(card, layout, store, case, B, dtype):
+    """K2b/K3b with 32 or 8 lanes a draw, keeping the pre-update states of a
+    whole segment, of one step or of 3 of its 7 steps in shared memory (the
+    segment's earlier steps then run forward twice), against one thread a draw on the
+    same inputs, checkpoints and cotangent, bit for bit on every leaf
+    (torch.equal): NaN columns as predict-only steps, an invalid draw (zero
+    gradients), a four-state constant measurement, both TVλ Jacobians,
+    shared and per-draw windows."""
+    bufs, chk, g, tvl, exact = _kfg_case(card, case, B, dtype)
+    thread = [x.clone() for x in _kfg(bufs, chk, g, tvl, exact, layout="thread")]
+    got = _kfg(bufs, chk, g, tvl, exact, layout=layout, store=store)
+    torch.cuda.synchronize()
+    for a, r in zip(got, thread):
+        assert a.dtype == dtype
+        assert torch.equal(a, r)
+    if "invalid" in case:
+        assert all(bool((a[:, B // 2] == 0).all()) for a in got)
+
+
+@pytest.mark.cuda
+def test_fused_kf_grad_pick_and_a_forced_layouts_refusal(card):
+    """The adjoint's pick follows the batch: a warp a draw keeping the
+    segment for a line search's few draws, a thread a draw at 16,384; with
+    360 maturities in float64 a warp's block holds a few of a draw's steps but not
+    its segment, so 64 draws take the warp keeping a few steps and 256
+    (which would not fit the card at once) the thread layout, while a
+    forced octet layout or a forced segment store raises and launches
+    nothing.  The pick equals the thread layout bit for bit and the plain
+    adjoint at 1e-6."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    small = _kfg_case(card, "AFNS5", 3, torch.float32)
+    assert G.backward_plan(small[0]) == ("warp", "segment")
+    large = _kfg_case(card, "TVλ exact windows", 16384, torch.float32)
+    assert G.backward_plan(large[0], tvl=True) == ("thread", None)
+    mats = tuple(np.arange(1, 361) / 12.0)
+    spec, _ = P.create_model("AFNS5", mats, float_type="float64")
+    for B, pick in ((64, "warp"), (256, "thread")):
+        rng = np.random.default_rng(B)
+        p = torch.as_tensor(_draws(spec, B, rng), device=card)
+        data = torch.as_tensor(0.5 * rng.standard_normal((len(mats), 12)) + 4, device=card)
+        args = G.core_inputs(spec, p, data, 0, 12)
+        bufs = G.lay_out(*args)
+        ll, chk = G.launch_forward(bufs)
+        g = torch.where(torch.isfinite(ll), torch.ones_like(ll), torch.zeros_like(ll))
+        layout, store = G.backward_plan(bufs)
+        assert layout == pick and store != "segment"
+        launches = G.launch_backward.launches
+        for kw in ({"layout": "octet"}, {"layout": "warp", "store": "segment"}):
+            with pytest.raises(RuntimeError, match="cudaError"):
+                G.launch_backward(bufs, chk, g, **kw)
+        assert G.launch_backward.launches == launches
+        picked = [x.clone() for x in G.launch_backward(bufs, chk, g)]
+        thread = G.launch_backward(bufs, chk, g, layout="thread")
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, r) for a, r in zip(picked, thread))
+        ref = G.adjoint_reference(*args[:6], *args[8:], chk.T.reshape(B, -1, 30), g)
+        for k, r in zip(picked, ref):
+            r = r.reshape(B, -1)
+            k = k.T.reshape(r.shape)
+            scale = r.abs().amax(1, keepdim=True)
+            assert ((k - r).abs() <= 1e-6 * r.abs() + 1e-9 * scale).all()
+
+
 @pytest.mark.cuda
 def test_estimate_on_the_card_matches_the_cpu(card):
     """The fused MLE on the card (K1 probes, K2f/K2b gradients) against the

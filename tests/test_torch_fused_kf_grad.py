@@ -239,3 +239,27 @@ def test_unsupported_families_and_devices(rng):
     assert v.dtype == torch.float32 and v.device.type == "cpu"
     assert (fused_kf_grad.launch_forward.launches,
             fused_kf_grad.launch_backward.launches) == launches
+
+
+@pytest.mark.parametrize("tvl", [False, True])
+def test_backward_refuses_an_unknown_layout_before_any_build(monkeypatch, tvl):
+    """``launch_backward[_tvl](layout=, store=)`` take None (the kernel's
+    pick), "thread", "warp" or "octet", and for a group layout None,
+    "segment" or "step"; any other choice raises ValueError before a
+    library is built or loaded or a buffer allocated."""
+    def no_build(name):
+        raise AssertionError(f"built or loaded {name}")
+
+    monkeypatch.setattr(fused_kf_grad, "load", no_build)
+    bufs = [torch.zeros(1)]  # never read: the choice is checked first
+    counter = fused_kf_grad.launch_backward_tvl if tvl else fused_kf_grad.launch_backward
+    launches = counter.launches
+    for kw in ({"layout": "block"}, {"layout": "Warp"}, {"layout": 2},
+               {"layout": "warp", "store": "chunk"}, {"store": 1},
+               {"layout": "thread", "store": "segment"}):
+        with pytest.raises(ValueError, match="layout must be one of|store must"):
+            if tvl:
+                fused_kf_grad.launch_backward_tvl(bufs, False, None, None, **kw)
+            else:
+                fused_kf_grad.launch_backward(bufs, None, None, **kw)
+    assert counter.launches == launches

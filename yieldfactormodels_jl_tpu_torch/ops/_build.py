@@ -34,6 +34,14 @@ _PF_ARGS = ([ctypes.c_int] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_double] * 2
 #: phi, delta, om, ovar, b0, p0, data, masks, win, mats, out
 _KF_ARGS = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 13
 
+#: yfm_kf_grad_bwd's arguments up to the stream: dtype, ms, B, N, T, S, nC; Z, d,
+#: phi, delta, om, ovar, data, masks, win, chk, g, the eight gradients, seg, pre;
+#: layout, store.  yfm_kf_tvl_grad_bwd's: dtype, exact, B, N, T, S, nC; phi,
+#: delta, om, ovar, data, masks, win, mats, chk, g, the six gradients, seg,
+#: pre; layout, store
+_KFG_BWD_ARGS = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 21 + [ctypes.c_int] * 2
+_KFG_TVL_BWD_ARGS = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 2
+
 #: kernel library name -> (source file under csrc/, {C entry point: argtypes},
 #: extra nvcc flags); every pointer and the stream are c_void_p so ctypes never
 #: cuts them to 32 bits, and host constants are c_double
@@ -48,9 +56,16 @@ KERNELS = {
         ("-DYFM_KF_CLOCKS",)),
     "fused_kf_grad": ("fused_kf_grad.cu", {
         "yfm_kf_grad_fwd": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 14,
-        "yfm_kf_grad_bwd": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 22,
+        "yfm_kf_grad_bwd": _KFG_BWD_ARGS + [ctypes.c_void_p],
         "yfm_kf_tvl_grad_fwd": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13,
-        "yfm_kf_tvl_grad_bwd": [ctypes.c_int] * 7 + [ctypes.c_void_p] * 19}),
+        "yfm_kf_tvl_grad_bwd": _KFG_TVL_BWD_ARGS + [ctypes.c_void_p],
+        "yfm_kf_grad_bwd_layout": [ctypes.c_int] * 8}),
+    # K2b/K3b again with clock64() stamps between the stages of the sweep:
+    # chip_smoke.py's stage breakdown loads it, the autograd Functions never do
+    "fused_kf_grad_clocks": ("fused_kf_grad.cu", {
+        "yfm_kf_grad_bwd_clocks": [ctypes.c_int] * 9 + [ctypes.c_void_p] * 22
+                                  + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2},
+        ("-DYFM_KFG_CLOCKS",)),
     # K4 without FMA contraction: a fused multiply-add rounds once where the
     # plain version and the JAX kernel round twice, and on a draw whose
     # recursion overflows that turned their NaN (−inf loss) into a finite

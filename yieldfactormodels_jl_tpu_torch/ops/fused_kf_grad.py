@@ -5,8 +5,10 @@ Counterpart of ``yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py`` for the
 three Kalman families.  The forward kernels (K2f for DNS "1C"/AFNS, K3f for
 the TVλ EKF; ``csrc/fused_kf_grad.cu``) run the univariate recursion of K1
 and save the (β, P) carry every S ≈ √T steps; the adjoint kernels (K2b,
-K3b) recompute each segment from its checkpoint and sweep it in reverse,
-accumulating
+K3b) recompute each segment from its checkpoint and sweep it in reverse —
+one thread a draw, or 32 or 8 lanes a draw that keep the segment's
+pre-update states in shared memory, picked by the batch, with the same
+bits — accumulating
 
   (∂Z, ∂d, ∂Φ, ∂δ, ∂Ω, ∂σ², ∂β₀, ∂P₀)   (TVλ: no ∂Z, ∂d)
 
@@ -491,22 +493,91 @@ def launch_forward(bufs):
 launch_forward.launches = 0
 
 
-def launch_backward(bufs, chk, g):
+def _choice_codes(layout, store):
+    """The C entry points' layout code and a function of S giving their
+    kept-steps code, for ``layout`` and ``store`` — what a forced group
+    layout keeps of each segment of S steps: None the most steps that fit,
+    "segment" all S, "step" one, an int K ≥ 1 that many; raises ValueError
+    on a choice they do not take, before any library is built or loaded or
+    any buffer is read."""
+    code = fused_kf._layout_code(layout)
+    steps = isinstance(store, int) and not isinstance(store, bool) and store >= 1
+    if not (steps or store in (None, "segment", "step")):
+        raise ValueError(f"store must be None, 'segment', 'step' or a number of steps; "
+                         f"got {store!r}")
+    if store is not None and layout not in ("warp", "octet"):
+        raise ValueError("store must be None unless a group layout (warp, octet) is forced: "
+                         "the thread layout keeps its states in global scratch")
+    return code, lambda S: store if steps else {None: 0, "segment": S, "step": 1}[store]
+
+
+def store_name(keep: int, S: int):
+    """How a group layout that keeps ``keep`` of a segment's S steps is named:
+    "segment", "step" or "K steps"; None for the thread layout (0)."""
+    if keep == 0:
+        return None
+    return "segment" if keep == S else "step" if keep == 1 else f"{keep} steps"
+
+
+def backward_plan(bufs, tvl: bool = False):
+    """What the adjoint (K3b when ``tvl``, else K2b) picks for these buffers
+    (``lay_out`` or ``lay_out_tvl``): (layout, store) — layout "thread",
+    "warp" or "octet" by the batch, the maturities, the segments and the real
+    type; store the steps of each segment whose pre-update states a group
+    layout keeps in shared memory ("segment", "step", "K steps"; see
+    :func:`store_name`), None for the thread layout."""
+    if tvl:
+        (code, B, N, T, S, nC), ms = _sizes_tvl(bufs), 4
+    else:
+        code, ms, B, N, T, S, nC = _sizes(bufs)
+    lib = load("fused_kf_grad")
+    with torch.cuda.device(bufs[0].device):
+        pick = lib.yfm_kf_grad_bwd_layout(code, int(tvl), ms, B, N, T, S, nC)
+    if pick < 0:
+        raise RuntimeError(f"fused_kf_grad layout query failed: cudaError {-pick}")
+    return fused_kf._LAYOUT_NAMES[pick % 4], store_name(pick // 4, S)
+
+
+def backward_layout_of(bufs, tvl: bool = False) -> str:
+    """The layout the adjoint picks for these buffers: "thread", "warp" or
+    "octet" (:func:`backward_plan`)."""
+    return backward_plan(bufs, tvl)[0]
+
+
+def _scratch(bufs, tvl, layout, rows, dtype, dev):
+    """The thread layout's draw-minor scratch (segment states, per-update
+    pre-states) when the launch takes it, else (None, None): the group
+    layouts keep their states in shared memory."""
+    if layout not in (None, "thread"):
+        return None, None
+    if layout is None and backward_plan(bufs, tvl)[0] != "thread":
+        return None, None
+    return (torch.empty(r, bufs[0].shape[1], dtype=dtype, device=dev) for r in rows)
+
+
+def launch_backward(bufs, chk, g, layout=None, store=None):
     """One launch of K2b on PyTorch's current stream: :func:`lay_out`
     buffers, the checkpoints of :func:`launch_forward` and the gated
     cotangent g (B,).  Returns the eight gradients (∂Z, ∂d, ∂Φ, ∂δ, ∂Ω, ∂σ²,
-    ∂β₀, ∂P₀) draw-minor, (D, B) each.  The segment states and the
-    per-update pre-states live in draw-minor scratch allocated here."""
+    ∂β₀, ∂P₀) draw-minor, (D, B) each.  ``layout`` None lets the kernel
+    pick by the batch (32 or 8 lanes a draw while the batch leaves the card
+    latency-bound and the draws' states fit its shared memory at once; else
+    a thread a draw, whose segment states and per-update pre-states live in
+    draw-minor scratch allocated here); "thread", "warp" or "octet" forces
+    one, and ``store`` ("segment", "step", a number of steps; None the most
+    that fit) the steps of a segment whose pre-update states a forced group
+    layout keeps, so that tests can hold them against each other.  Raises if the launch is
+    refused: a forced choice that cannot launch is never replaced."""
+    lay, keep = _choice_codes(layout, store)
     code, Ms, B, N, T, S, nC = _sizes(bufs)
     dev, dtype = bufs[0].device, bufs[0].dtype
     D = Ms + Ms * Ms
     rows = (N * Ms, N, Ms * Ms, Ms, Ms * Ms, 1, Ms, Ms * Ms)
     grads = [torch.empty(r, B, dtype=dtype, device=dev) for r in rows]
-    seg = torch.empty(S * D, B, dtype=dtype, device=dev)
-    pre = torch.empty(N * D, B, dtype=dtype, device=dev)
+    seg, pre = _scratch(bufs, False, layout, (S * D, N * D), dtype, dev)
     ins = bufs[:6] + bufs[8:] + [chk, g.contiguous()]
     _launch("yfm_kf_grad_bwd", "K2b (fused_kf_grad backward)", dev, code, Ms, B,
-            N, T, S, nC, *_ptrs(ins), *_ptrs(grads + [seg, pre]))
+            N, T, S, nC, *_ptrs(ins), *_ptrs(grads + [seg, pre]), lay, keep(S))
     launch_backward.launches += 1
     return grads
 
@@ -530,18 +601,20 @@ def launch_forward_tvl(bufs, exact: bool):
 launch_forward_tvl.launches = 0
 
 
-def launch_backward_tvl(bufs, exact: bool, chk, g):
+def launch_backward_tvl(bufs, exact: bool, chk, g, layout=None, store=None):
     """One launch of K3b: :func:`lay_out_tvl` buffers, the checkpoints of
     :func:`launch_forward_tvl` and the gated cotangent g (B,).  Returns the
-    six gradients (∂Φ, ∂δ, ∂Ω, ∂σ², ∂β₀, ∂P₀) draw-minor, (D, B) each."""
+    six gradients (∂Φ, ∂δ, ∂Ω, ∂σ², ∂β₀, ∂P₀) draw-minor, (D, B) each;
+    ``layout`` and ``store`` as in :func:`launch_backward`."""
+    lay, keep = _choice_codes(layout, store)
     code, B, N, T, S, nC = _sizes_tvl(bufs)
     dev, dtype = bufs[0].device, bufs[0].dtype
     grads = [torch.empty(r, B, dtype=dtype, device=dev) for r in (16, 4, 16, 1, 4, 16)]
-    seg = torch.empty(S * 20, B, dtype=dtype, device=dev)
-    pre = torch.empty(N * 20, B, dtype=dtype, device=dev)
+    seg, pre = _scratch(bufs, True, layout, (S * 20, N * 20), dtype, dev)
     ins = bufs[:4] + bufs[6:] + [chk, g.contiguous()]
     _launch("yfm_kf_tvl_grad_bwd", "K3b (fused_kf_grad TVλ backward)", dev, code,
-            int(exact), B, N, T, S, nC, *_ptrs(ins), *_ptrs(grads + [seg, pre]))
+            int(exact), B, N, T, S, nC, *_ptrs(ins), *_ptrs(grads + [seg, pre]), lay,
+            keep(S))
     launch_backward_tvl.launches += 1
     return grads
 
