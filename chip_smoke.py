@@ -49,7 +49,12 @@ Phases (any failure raises and the script exits non-zero):
    3, 256, 1024, 4096 and 16384 (float32), their cycles by stage from the
    clock build (``fused_kf_grad_clocks``) for the thread layout and the
    pick at B = 1, 256 and 1024, and the adjoint's latency-chain bound
-   (``kf_grad_chain_ms``).
+   (``kf_grad_chain_ms``).  K2f (AFNS5) and K3f (TVλ, the reference's
+   Jacobian) by layout, each in turns, with the pick, at the same batches
+   (float32), each layout's ratio to K1's latency-chain bound (the
+   checkpoint stores are off the chain), and at B=1 their cycles by stage
+   for the thread layout and the pick from the clock build of their launch
+   of K1's kernels (``fused_kf_fwd_clocks``).
 6. gradient pairs at full width — through the fused objective's
    value-and-gradient (launch counts 1 and 1, plain versions 0): AFNS5,
    B=1024 (K2f + K2b) and TVλ, B=1024, under both exact_jacobian settings
@@ -68,7 +73,9 @@ Phases (any failure raises and the script exits non-zero):
    (float64) of the raw parameters, and for float32 agreement with the
    plain float64 gradient to that quarter; the counts are printed.  There
    the float32 gradient is also held against the plain float32 one.  Then "1C" and TVλ with interior NaN columns, an
-   invalid draw and per-draw windows, B=2048.  On every case every adjoint
+   invalid draw and per-draw windows, B=2048.  On every case every forward
+   layout (warp, octet) against the thread layout bit for bit on the value
+   and every checkpoint word, float32 and float64, and every adjoint
    layout and store (warp and octet keeping the segment, one step or 9
    steps) against the thread layout bit for bit on the raw leaves, float32
    and float64 (torch.equal); the same on a four-state constant
@@ -77,7 +84,9 @@ Phases (any failure raises and the script exits non-zero):
    with per-draw windows, B=512; and AFNS5 at 360 maturities in
    float64, where 64 draws pick the warp keeping a few steps (its leaves
    against the plain adjoint) and 256 the thread layout, and a forced octet
-   or a forced segment store raises without launching.
+   or a forced segment store raises without launching; there the forward
+   picks the warp at both batches and a forced forward octet raises without
+   launching.
 7. the fused MLE — ``estimate`` at N=20, T=360, S=256 starts,
    max_iters=50, with the launch counts set to 0 just before it: K1 ≥ 1,
    the forward and adjoint kernels once per value-and-gradient call, plain
@@ -690,23 +699,27 @@ def kf_layouts_equal(fused_kf, inputs, what):
     return outs[pick]
 
 
-def kf_stage_clocks(fused_kf, inputs, layout, reps=3):
+def kf_stage_clocks(fused_kf, inputs, layout, reps=3, chk=None, S=1):
     """K1's cycles by stage for draw 0 (the clock build, ``fused_kf_clocks``:
     the same source with clock64() stamps between a step's stages; lane 0's
     in a group layout), from the last of ``reps`` launches: each stage's
     cycles a step — an observed step for the stages that run only there —
-    and the loop's.  Also the launch's time with the stamps on."""
+    and the loop's.  Also the launch's time with the stamps on.  With a
+    checkpoint buffer ``chk`` it runs K2f's or K3f's launch of the same
+    kernels (``fwd_kernel_inputs``), the checkpoints every S steps, from
+    their own clock build (``fused_kf_fwd_clocks``)."""
     from yieldfactormodels_jl_tpu_torch.ops import _build
 
-    lib = _build.load("fused_kf_clocks")
+    lib = _build.load("fused_kf_clocks" if chk is None else "fused_kf_fwd_clocks")
     clocks = torch.zeros(len(KF_STAGES) + 3, dtype=torch.int64, device=inputs.out.device)
     ptrs = [None if x is None else x.data_ptr() for x in inputs.buffers]
     code = fused_kf._layout_code(layout)
+    chk_ptr = None if chk is None else chk.data_ptr()
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        err = lib.yfm_fused_kf_clocks(*inputs.ints, *ptrs, inputs.out.data_ptr(), code,
-                                      clocks.data_ptr(), stream)
+        err = lib.yfm_fused_kf_clocks(*inputs.ints, *ptrs, inputs.out.data_ptr(), chk_ptr, S,
+                                      code, clocks.data_ptr(), stream)
         check(err == 0, f"K1 clock build launch failed: cudaError {err}")
 
     ms = cuda_ms(run, reps=reps, warmup=1)
@@ -716,6 +729,80 @@ def kf_stage_clocks(fused_kf, inputs, layout, reps=3):
                 for q, name in enumerate(KF_STAGES)}
     return {"cycles_per_step": per_step, "loop_cycles_per_step": loop / steps,
             "steps": steps, "observed_steps": n_obs, "ms_with_stamps": ms}
+
+
+#: the forward kernels' (K2f/K3f) layouts, "thread" first: the others are
+#: held against it
+KFG_FWD_LAYOUTS = ("thread", "warp", "octet")
+
+
+def fwd_launch(bufs, tvl, exact, layout=None):
+    """One forward launch (K3f when ``tvl``, else K2f) in a forced or the
+    picked layout; returns (ll, checkpoints)."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    if tvl:
+        return G.launch_forward_tvl(bufs, exact, layout=layout)
+    return G.launch_forward(bufs, layout=layout)
+
+
+def same_bits(a, b):
+    """Bit for bit, NaN words too (an invalid draw's checkpoints are NaN)."""
+    as_int = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.shape == b.shape and torch.equal(a.view(as_int), b.view(as_int))
+
+
+def fwd_layouts(bufs, tvl, exact):
+    """Each forward layout that launches on these buffers, with its (ll,
+    checkpoints): a forced group layout whose draws' rows pass a block's
+    shared memory is refused (cudaErrorInvalidValue), launches nothing and
+    is left out."""
+    out = {}
+    for layout in KFG_FWD_LAYOUTS:
+        try:
+            res = fwd_launch(bufs, tvl, exact, layout)
+        except RuntimeError as e:
+            check("cudaError 1" in str(e) and layout != "thread", f"forward {layout}: {e}")
+            continue
+        out[layout] = [x.clone() for x in res]
+    return out
+
+
+def fwd_layouts_equal(bufs, tvl, exact, what):
+    """Every forward layout that launches against the thread layout on the
+    same buffers: the value equal (torch.equal) and every checkpoint word the
+    same bits; and the pick among them.  Returns the pick."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    outs = fwd_layouts(bufs, tvl, exact)
+    ll_t, chk_t = outs.pop("thread")
+    pick = G.forward_layout_of(bufs, tvl)
+    outs["pick"] = fwd_launch(bufs, tvl, exact)
+    for layout, (ll, chk) in outs.items():
+        n_diff = int((ll != ll_t).sum())
+        check(torch.equal(ll, ll_t), f"{what}: forward {layout} value differs from the thread "
+              f"layout on {n_diff} of {ll.numel()} draws")
+        check(same_bits(chk, chk_t), f"{what}: forward {layout} checkpoints differ from the "
+              "thread layout")
+    print(f"  {what}: forward {', '.join(k for k in outs if k != 'pick')} == thread bit for bit "
+          f"(value and {chk_t.numel()} checkpoint words); picks {pick}")
+    return pick
+
+
+def fwd_kernel_inputs(fused_kf, bufs, tvl, exact):
+    """K1's KernelInputs for the buffers of a K2f (``lay_out``) or K3f
+    (``lay_out_tvl``) launch: the clock build runs K2f's or K3f's launch from
+    them with a checkpoint buffer."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    if tvl:
+        (code, B, N, T, _, _), Ms = G._sizes_tvl(bufs), 4
+        buffers = (None, None, *bufs)
+    else:
+        code, Ms, B, N, T, _, _ = G._sizes(bufs)
+        buffers = (*bufs, None)
+    return fused_kf.KernelInputs((code, Ms, int(tvl), int(exact), B, N, T), buffers,
+                                 torch.empty(B, dtype=bufs[0].dtype, device=bufs[0].device))
 
 
 #: the adjoints' (K2b/K3b) stages in the order of fused_kf_grad.cu's KfgStage
@@ -1518,10 +1605,13 @@ def sass_loop_counts(lib_path, needle="ssd_loss_kernel"):
                 span = max(span, i - j + 1)
         kf = re.search(r"(fused_kf(?:_group)?_kernel)I([fd])", name)
         if kf is not None:
+            # the measurement's argument, then the group layout's lanes and
+            # the checkpoint flag
             ints = re.findall(r"L([ib])(\d+)E", name)
             meas = (f"TVλ exact={ints[0][1] == '1'}" if "TvlMeas" in name
                     else f"Ms={ints[0][1]}")
-            lanes = f" G={ints[1][1]}" if len(ints) > 1 else ""
+            lanes = "".join(f" G={v}" for k, v in ints[1:] if k == "i")
+            lanes += "".join(" checkpoints" for k, v in ints[1:] if k == "b" and v == "1")
             out[f"{kf.group(1)} {'f32' if kf.group(2) == 'f' else 'f64'} {meas}{lanes}"] = {
                 "instructions": len(addrs), "step_loop": span}
             continue
@@ -2545,16 +2635,54 @@ def kalman_phases(yfm, dev, report):
     for key, (ms_c, cyc) in kfg_chain.items():
         print(f"  adjoint latency-chain bound {key}, one draw: {ms_c:.4f} ms ({cyc:.0f} cycles "
               f"an observed step, forward and reverse, at {clock_mhz:.0f} MHz)")
-    kfg_layouts, kfg_stages = {}, {}
+    kfg_layouts, kfg_stages, fwd_layouts_ms, fwd_stages = {}, {}, {}, {}
     for fam, s32, pan, tvl in (("AFNS5", spec, panel32, False),
                                ("TVλ", tvl_ref32, dns_panel32, True)):
         name = "K3b" if tvl else "K2b"
+        fname = "K3f" if tvl else "K2f"
         for B in KFG_TIMING_BATCHES:
             args = G.core_inputs(s32, k1_draws(fam, B), pan, 0, T_MONTHS)
             bufs = G.lay_out_tvl(*args[:10]) if tvl else G.lay_out(*args)
             out, chk = G.launch_forward_tvl(bufs, False) if tvl else G.launch_forward(bufs)
             g = torch.ones(B, device=dev, dtype=f32)
             grads = kfg_launch(bufs, chk, g, tvl, False)
+            # the forward by layout, each in turns, and the pick; its
+            # latency-chain bound is K1's (the checkpoint stores are off the
+            # chain)
+            fpick = G.forward_layout_of(bufs, tvl)
+            fturns = {lay: [] for lay in KFG_FWD_LAYOUTS}
+            for _ in range(2):
+                for lay in KFG_FWD_LAYOUTS:
+                    fturns[lay].append(cuda_ms(lambda: fwd_launch(bufs, tvl, False, lay),
+                                               reps=10 if B < 16384 else 5))
+            fms = {lay: sum(v) / len(v) for lay, v in fturns.items()}
+            (fb, ff), _, _ = grad_kernel_work(bufs, pan, out, chk, grads, tvl)
+            f_bound, f_by = bound(fb, ff)
+            f_chain = chain[f"{fam} float32"][0]
+            fwd_layouts_ms[f"{fam} {B}"] = {
+                "kernel": fname, "ms": fms, "turns": fturns, "pick": fpick,
+                "pick_ms": fms[fpick], "pick_over_thread": fms[fpick] / fms["thread"],
+                "bound_ms": f_bound, "bound_by": f_by, "chain_bound_ms": f_chain,
+                "over_chain": {lay: v / f_chain for lay, v in fms.items()}}
+            print(f"  {fname} {fam} B={B}: " + ", ".join(
+                f"{lay} {fms[lay]:.4f} ms ({' / '.join(f'{t:.4f}' for t in fturns[lay])}; "
+                f"{fms[lay] / f_chain:.2f}× chain)" for lay in KFG_FWD_LAYOUTS)
+                + f"; picks {fpick} ({fms[fpick] / fms['thread']:.3f}× thread); bound "
+                f"{f_bound:.4f} ms ({f_by}); latency-chain bound {f_chain:.4f} ms")
+            if B == 1:  # the forward's cycles by stage: the thread layout and the pick
+                k_in = fwd_kernel_inputs(fused_kf, bufs, tvl, False)
+                chk_c = torch.empty_like(chk)
+                for lay in ("thread", fpick):
+                    st = kf_stage_clocks(fused_kf, k_in, lay, chk=chk_c, S=G._seg(T_MONTHS)[0])
+                    st["ms"] = fms[lay]
+                    fwd_stages[f"{fname} {fam} f32 B=1 {lay}"] = st
+                    cyc = st["cycles_per_step"]
+                    print(f"  {fname} {fam} f32 B=1 {lay}: {st['ms']:.4f} ms; cycles a step "
+                          f"(observed step for the chain's stages): "
+                          + ", ".join(f"{k} {v:.0f}" for k, v in cyc.items())
+                          + f"; loop {st['loop_cycles_per_step']:.0f} a step, "
+                          f"{st['loop_cycles_per_step'] / N_MATURITIES:.0f} an update; "
+                          f"{st['ms_with_stamps']:.4f} ms with the stamps")
             # the variants that launch, and the pick (layout None) where it is
             # none of them
             plan = G.backward_plan(bufs, tvl)
@@ -2595,6 +2723,8 @@ def kalman_phases(yfm, dev, report):
                           f"{st['ms_with_stamps']:.4f} ms with the stamps")
     report["kfg_layouts"] = kfg_layouts
     report["kfg_stage_clocks"] = kfg_stages
+    report["kfg_fwd_layouts"] = fwd_layouts_ms
+    report["kfg_fwd_stage_clocks"] = fwd_stages
     report["kfg_chain_bound_ms"] = {k: v[0] for k, v in kfg_chain.items()}
 
     # ---- 6. gradient pairs at full width ---------------------------------------
@@ -2715,12 +2845,14 @@ def kalman_phases(yfm, dev, report):
         # every adjoint layout against the thread layout on the raw leaves,
         # float64 (the inputs above) and float32 (the same draws)
         exact = bool(args64[10]) if tvl else False
+        fwd_layouts_equal(bufs64, tvl, exact, f"{what}: f64 {names[0]}")
         kfg_layouts_equal(bufs64, chk64, cot, tvl, exact, f"{what}: f64 {names[1]} layouts")
         args32 = [a.detach() if torch.is_tensor(a) else a for a in G.core_inputs(
             s32, yfm.transform_params(s32, X32), data32, 0, T_MONTHS, **wkw)]
         bufs32 = G.lay_out_tvl(*args32[:10]) if tvl else G.lay_out(*args32)
         ll32, chk32 = G.launch_forward_tvl(bufs32, exact) if tvl else G.launch_forward(bufs32)
         cot32 = torch.where(torch.isfinite(ll32), cot.to(f32), torch.zeros_like(ll32))
+        fwd_layouts_equal(bufs32, tvl, exact, f"{what}: f32 {names[0]}")
         kfg_layouts_equal(bufs32, chk32, cot32, tvl, exact, f"{what}: f32 {names[1]} layouts")
         if win is not None:
             bad = (~fin).nonzero().flatten().tolist()
@@ -2764,6 +2896,7 @@ def kalman_phases(yfm, dev, report):
             cot = torch.rand(ll.shape, generator=torch.Generator(device=dev).manual_seed(6),
                              device=dev, dtype=dtype) + 0.5
             cot = torch.where(fin, cot, torch.zeros_like(cot))
+            fwd_layouts_equal(bufs, tvl, exact, f"{what}: {str(dtype)[6:]}")
             _, picked = kfg_layouts_equal(bufs, chk, cot, tvl, exact,
                                           f"{what}: {str(dtype)[6:]} layouts")
             if dtype == f64 and not tvl:  # TVλ with windows: the B=2048 case above
@@ -2782,6 +2915,17 @@ def kalman_phases(yfm, dev, report):
         bufs = G.lay_out(*args)
         ll, chk = G.launch_forward(bufs)
         cot = torch.where(torch.isfinite(ll), torch.ones_like(ll), torch.zeros_like(ll))
+        # the forward as K1: warp at 64 and 256 draws, a forced octet refused
+        fwd_launches = G.launch_forward.launches
+        try:
+            G.launch_forward(bufs, layout="octet")
+        except RuntimeError as e:
+            check("cudaError 1" in str(e), f"360 maturities forward: {e}")
+        else:
+            check(False, f"360 maturities f64 B={B}: forward octet launched")
+        check(G.launch_forward.launches == fwd_launches, "a refused forward launch was counted")
+        check(fwd_layouts_equal(bufs, False, False, f"360 maturities f64 B={B}") == "warp",
+              f"360 maturities f64 B={B}: the forward does not pick the warp")
         plan = G.backward_plan(bufs)
         check(plan[0] == pick and plan[1] != "segment", f"360 maturities f64 B={B}: picks "
               f"{kfg_name(*plan)}, expected {pick} keeping less than the segment")
@@ -2871,6 +3015,13 @@ def kalman_phases(yfm, dev, report):
             "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
             "shapes": by_shape}
+        if name.endswith("f"):
+            mine = {k: v for k, v in fwd_layouts_ms.items() if v["kernel"] == name}
+            entry["layouts"] = {k: v["ms"] for k, v in mine.items()}
+            entry["pick"] = {k: v["pick"] for k, v in mine.items()}
+            entry["pick_over_thread"] = {k: v["pick_over_thread"] for k, v in mine.items()}
+            entry["chain_bound_ms"] = next(iter(mine.values()))["chain_bound_ms"]
+            entry["pick_over_chain"] = {k: v["over_chain"][v["pick"]] for k, v in mine.items()}
         if name.endswith("b"):
             fam = "AFNS5" if name == "K2b" else "TVλ"
             entry["layouts"] = {k: v["ms"] for k, v in kfg_layouts.items() if v["kernel"] == name}

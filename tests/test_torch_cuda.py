@@ -381,6 +381,102 @@ def test_fused_kf_grad_layouts_equal(card, layout, store, case, B, dtype):
         assert all(bool((a[:, B // 2] == 0).all()) for a in got)
 
 
+def _fwd(bufs, tvl, exact, **kw):
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    return G.launch_forward_tvl(bufs, exact, **kw) if tvl else G.launch_forward(bufs, **kw)
+
+
+def _same_bits(a, b):
+    """Bit for bit, NaN words too (an invalid draw's checkpoints are NaN)."""
+    as_int = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(as_int),
+                                                                     b.view(as_int))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [3, 300])
+@pytest.mark.parametrize("case", _KFG_CASES)
+@pytest.mark.parametrize("layout", ["warp", "octet"])
+def test_fused_kf_grad_forward_layouts_equal(card, layout, case, B, dtype):
+    """K2f/K3f with 32 or 8 lanes a draw against one thread a draw on the
+    same inputs: the value equal (torch.equal: the same −inf draws and every
+    finite bit) and every checkpoint word the same bits (NaN words too: an
+    invalid draw's state is NaN), on NaN columns, an invalid draw, a
+    four-state constant measurement, both TVλ Jacobians, shared and per-draw
+    windows."""
+    bufs, _, _, tvl, exact = _kfg_case(card, case, B, dtype)
+    ll_t, chk_t = (x.clone() for x in _fwd(bufs, tvl, exact, layout="thread"))
+    ll, chk = _fwd(bufs, tvl, exact, layout=layout)
+    torch.cuda.synchronize()
+    assert ll.dtype == dtype and torch.equal(ll, ll_t)
+    assert _same_bits(chk, chk_t)
+    if "invalid" in case:
+        assert ll[B // 2] == -np.inf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("layout", [None, "thread", "warp", "octet"])
+def test_fused_kf_tvl_grad_forward_equals_k1_in_each_layout(card, layout, exact, dtype):
+    """K3f's value is K1-TVλ's bit for bit in each layout (one kernel in
+    kf_common.cuh, K3f's launch only adds the checkpoints), and the pick
+    (layout None) is K1's pick for the same shapes."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    case = "TVλ exact windows" if exact else "TVλ reference windows"
+    bufs, _, _, tvl, _ = _kfg_case(card, case, 300, dtype)
+    code, B, N, T, _, _ = G._sizes_tvl(bufs)
+    k1 = fused_kf.KernelInputs((code, 4, 1, int(exact), B, N, T), (None, None, *bufs),
+                               torch.empty(B, dtype=dtype, device=card))
+    assert G.forward_layout_of(bufs, tvl=True) == fused_kf.layout_of(k1)
+    ll_k1 = fused_kf.launch(k1, layout=layout).clone()
+    ll, _ = G.launch_forward_tvl(bufs, exact, layout=layout)
+    torch.cuda.synchronize()
+    assert torch.equal(ll, ll_k1)
+    assert bool(torch.isfinite(ll).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, pick", [(256, "warp"), (1024, "thread")])
+def test_fused_kf_grad_forward_pick_and_a_forced_layouts_refusal(card, B, pick):
+    """The forward's pick follows the batch (a warp a draw for a line
+    search's few draws, a thread a draw at 16,384) and, as K1's, takes a
+    group layout only while its blocks fit the card at once: 360 monthly
+    maturities in float64 give 256 draws the warp and 1,024 the thread
+    layout, and a forced octet layout (four draws' rows pass a block's
+    shared memory) raises and launches nothing.  The pick equals the thread
+    layout bit for bit, checkpoints too, and agrees with the plain version."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+
+    assert G.forward_layout_of(_kfg_case(card, "AFNS5", 3, torch.float32)[0]) == "warp"
+    large = _kfg_case(card, "TVλ exact windows", 16384, torch.float32)[0]
+    assert G.forward_layout_of(large, tvl=True) == "thread"
+    mats = tuple(np.arange(1, 361) / 12.0)
+    spec, _ = P.create_model("AFNS5", mats, float_type="float64")
+    rng = np.random.default_rng(B)
+    p = torch.as_tensor(_draws(spec, B, rng), device=card)
+    data = torch.as_tensor(0.5 * rng.standard_normal((len(mats), 12)) + 4, device=card)
+    args = G.core_inputs(spec, p, data, 0, 12)
+    bufs = G.lay_out(*args)
+    assert G.forward_layout_of(bufs) == pick
+    launches = G.launch_forward.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        G.launch_forward(bufs, layout="octet")
+    assert G.launch_forward.launches == launches
+    ll, chk = (x.clone() for x in G.launch_forward(bufs))
+    ll_t, chk_t = G.launch_forward(bufs, layout="thread")
+    torch.cuda.synchronize()
+    assert torch.equal(ll, ll_t) and _same_bits(chk, chk_t)
+    assert bool(torch.isfinite(ll).all())
+    ref, chk_ref = G.forward_reference(*args)
+    np.testing.assert_allclose(ll.cpu().numpy(), ref.cpu().numpy(), rtol=1e-9)
+    np.testing.assert_allclose(chk.T.reshape(chk_ref.shape).cpu().numpy(),
+                               chk_ref.cpu().numpy(), rtol=1e-9, atol=1e-12)
+
+
 @pytest.mark.cuda
 def test_fused_kf_grad_pick_and_a_forced_layouts_refusal(card):
     """The adjoint's pick follows the batch: a warp a draw keeping the

@@ -242,6 +242,27 @@ def test_unsupported_families_and_devices(rng):
 
 
 @pytest.mark.parametrize("tvl", [False, True])
+def test_forward_refuses_an_unknown_layout_before_any_build(monkeypatch, tvl):
+    """``launch_forward[_tvl](layout=)`` take None (the kernel's pick),
+    "thread", "warp" or "octet"; any other name raises ValueError before a
+    library is built or loaded or a buffer allocated."""
+    def no_build(name):
+        raise AssertionError(f"built or loaded {name}")
+
+    monkeypatch.setattr(fused_kf_grad, "load", no_build)
+    bufs = [torch.zeros(1)]  # never read: the layout is checked first
+    counter = fused_kf_grad.launch_forward_tvl if tvl else fused_kf_grad.launch_forward
+    launches = counter.launches
+    for layout in ("block", "Warp", 2, "pick"):
+        with pytest.raises(ValueError, match="layout must be one of"):
+            if tvl:
+                fused_kf_grad.launch_forward_tvl(bufs, False, layout=layout)
+            else:
+                fused_kf_grad.launch_forward(bufs, layout=layout)
+    assert counter.launches == launches
+
+
+@pytest.mark.parametrize("tvl", [False, True])
 def test_backward_refuses_an_unknown_layout_before_any_build(monkeypatch, tvl):
     """``launch_backward[_tvl](layout=, store=)`` take None (the kernel's
     pick), "thread", "warp" or "octet", and for a group layout None,

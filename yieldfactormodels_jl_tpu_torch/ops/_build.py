@@ -33,6 +33,14 @@ _PF_ARGS = ([ctypes.c_int] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_double] * 2
 #: yfm_fused_kf's arguments up to ``out``: dtype, ms, tvl, exact, B, N, T; Z, d,
 #: phi, delta, om, ovar, b0, p0, data, masks, win, mats, out
 _KF_ARGS = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 13
+_KF_CLOCKS_ARGS = _KF_ARGS + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2
+
+#: yfm_kf_grad_fwd's arguments up to the layout: dtype, ms, B, N, T, S; Z, d, phi,
+#: delta, om, ovar, b0, p0, data, masks, win, out, chk.  yfm_kf_tvl_grad_fwd's:
+#: dtype, exact, B, N, T, S; phi, delta, om, ovar, b0, p0, data, masks, win, mats,
+#: out, chk
+_KFG_FWD_ARGS = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13
+_KFG_TVL_FWD_ARGS = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 12
 
 #: yfm_kf_grad_bwd's arguments up to the stream: dtype, ms, B, N, T, S, nC; Z, d,
 #: phi, delta, om, ovar, data, masks, win, chk, g, the eight gradients, seg, pre;
@@ -49,16 +57,21 @@ KERNELS = {
     "fused_kf": ("fused_kf.cu", {
         "yfm_fused_kf": _KF_ARGS + [ctypes.c_int, ctypes.c_void_p],
         "yfm_fused_kf_layout": [ctypes.c_int] * 5}),
-    # K1 again with clock64() stamps between the stages of a step: chip_smoke.py's
-    # stage breakdown loads it, batched_loglik never does
-    "fused_kf_clocks": ("fused_kf.cu", {
-        "yfm_fused_kf_clocks": _KF_ARGS + [ctypes.c_int] + [ctypes.c_void_p] * 2},
-        ("-DYFM_KF_CLOCKS",)),
+    # K1 again with clock64() stamps between the stages of a step, and K2f's and
+    # K3f's launch of the same kernels (the checkpoint store compiled in) as a
+    # library of its own: chip_smoke.py's stage breakdown loads them,
+    # batched_loglik and launch_forward never do.  Arguments after ``out``:
+    # chk (null for K1), S, layout, clocks, stream
+    "fused_kf_clocks": ("fused_kf.cu", {"yfm_fused_kf_clocks": _KF_CLOCKS_ARGS},
+                        ("-DYFM_KF_CLOCKS",)),
+    "fused_kf_fwd_clocks": ("fused_kf.cu", {"yfm_fused_kf_clocks": _KF_CLOCKS_ARGS},
+                            ("-DYFM_KF_CLOCKS", "-DYFM_KF_CLOCKS_CHK")),
     "fused_kf_grad": ("fused_kf_grad.cu", {
-        "yfm_kf_grad_fwd": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 14,
+        "yfm_kf_grad_fwd": _KFG_FWD_ARGS + [ctypes.c_int, ctypes.c_void_p],
         "yfm_kf_grad_bwd": _KFG_BWD_ARGS + [ctypes.c_void_p],
-        "yfm_kf_tvl_grad_fwd": [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13,
+        "yfm_kf_tvl_grad_fwd": _KFG_TVL_FWD_ARGS + [ctypes.c_int, ctypes.c_void_p],
         "yfm_kf_tvl_grad_bwd": _KFG_TVL_BWD_ARGS + [ctypes.c_void_p],
+        "yfm_kf_grad_fwd_layout": [ctypes.c_int] * 6,
         "yfm_kf_grad_bwd_layout": [ctypes.c_int] * 8}),
     # K2b/K3b again with clock64() stamps between the stages of the sweep:
     # chip_smoke.py's stage breakdown loads it, the autograd Functions never do

@@ -3,12 +3,13 @@ adjoint kernels behind a ``torch.autograd.Function``.
 
 Counterpart of ``yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py`` for the
 three Kalman families.  The forward kernels (K2f for DNS "1C"/AFNS, K3f for
-the TVλ EKF; ``csrc/fused_kf_grad.cu``) run the univariate recursion of K1
-and save the (β, P) carry every S ≈ √T steps; the adjoint kernels (K2b,
-K3b) recompute each segment from its checkpoint and sweep it in reverse —
-one thread a draw, or 32 or 8 lanes a draw that keep the segment's
-pre-update states in shared memory, picked by the batch, with the same
-bits — accumulating
+the TVλ EKF; ``csrc/fused_kf_grad.cu``) are K1's kernels — one thread a
+draw, or 32 or 8 lanes a draw that share its gains, picked by the batch as
+K1 picks, with the same bits — and save the (β, P) carry every S ≈ √T steps;
+the adjoint kernels (K2b, K3b) recompute each segment from its checkpoint
+and sweep it in reverse — one thread a draw, or 32 or 8 lanes a draw that
+keep the segment's pre-update states in shared memory, picked by the batch,
+with the same bits — accumulating
 
   (∂Z, ∂d, ∂Φ, ∂δ, ∂Ω, ∂σ², ∂β₀, ∂P₀)   (TVλ: no ∂Z, ∂d)
 
@@ -476,21 +477,46 @@ def _launch(entry, what, dev, *args):
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
-def launch_forward(bufs):
+def launch_forward(bufs, layout=None):
     """One launch of K2f on PyTorch's current stream, on :func:`lay_out`
     buffers (CUDA, one float type).  Returns (ll (B,), checkpoints
-    (nC·(Ms+Ms²), B) draw-minor); raises if the launch is refused."""
+    (nC·(Ms+Ms²), B) draw-minor).  ``layout`` None lets the kernel pick as
+    K1 picks for the same shapes (32 or 8 lanes a draw while the batch
+    leaves the card latency-bound and its blocks fit the card at once; else
+    a thread a draw); "thread", "warp" or "octet" forces one, so that tests
+    can hold the layouts against each other: every layout returns the same
+    bits.  An unknown name raises ValueError before any library is built or
+    loaded; a refused launch raises RuntimeError, and a forced layout that
+    cannot launch is never replaced."""
+    lay = fused_kf._layout_code(layout)
     code, Ms, B, N, T, S, nC = _sizes(bufs)
     dev, dtype = bufs[0].device, bufs[0].dtype
     out = torch.empty(B, dtype=dtype, device=dev)
     chk = torch.empty(nC * (Ms + Ms * Ms), B, dtype=dtype, device=dev)
     _launch("yfm_kf_grad_fwd", "K2f (fused_kf_grad forward)", dev, code, Ms, B,
-            N, T, S, *_ptrs(bufs), out.data_ptr(), chk.data_ptr())
+            N, T, S, *_ptrs(bufs), out.data_ptr(), chk.data_ptr(), lay)
     launch_forward.launches += 1
     return out, chk
 
 
 launch_forward.launches = 0
+
+
+def forward_layout_of(bufs, tvl: bool = False) -> str:
+    """The layout the forward kernel (K3f when ``tvl``, else K2f) picks for
+    these buffers (``lay_out`` or ``lay_out_tvl``): "thread", "warp" or
+    "octet", by the batch, the state dimension, the maturities and the real
+    type — K1's pick for the same shapes."""
+    if tvl:
+        (code, B, N, T, _, _), ms = _sizes_tvl(bufs), 4
+    else:
+        code, ms, B, N, T, _, _ = _sizes(bufs)
+    lib = load("fused_kf_grad")
+    with torch.cuda.device(bufs[0].device):
+        pick = lib.yfm_kf_grad_fwd_layout(code, int(tvl), ms, B, N, T)
+    if pick < 0:
+        raise RuntimeError(f"fused_kf_grad forward layout query failed: cudaError {-pick}")
+    return fused_kf._LAYOUT_NAMES[pick]
 
 
 def _choice_codes(layout, store):
@@ -585,15 +611,17 @@ def launch_backward(bufs, chk, g, layout=None, store=None):
 launch_backward.launches = 0
 
 
-def launch_forward_tvl(bufs, exact: bool):
+def launch_forward_tvl(bufs, exact: bool, layout=None):
     """One launch of K3f on :func:`lay_out_tvl` buffers: (ll (B,),
-    checkpoints (nC·20, B) draw-minor), as :func:`launch_forward`."""
+    checkpoints (nC·20, B) draw-minor); ``layout`` as in
+    :func:`launch_forward`."""
+    lay = fused_kf._layout_code(layout)
     code, B, N, T, S, nC = _sizes_tvl(bufs)
     dev, dtype = bufs[0].device, bufs[0].dtype
     out = torch.empty(B, dtype=dtype, device=dev)
     chk = torch.empty(nC * 20, B, dtype=dtype, device=dev)
     _launch("yfm_kf_tvl_grad_fwd", "K3f (fused_kf_grad TVλ forward)", dev, code,
-            int(exact), B, N, T, S, *_ptrs(bufs), out.data_ptr(), chk.data_ptr())
+            int(exact), B, N, T, S, *_ptrs(bufs), out.data_ptr(), chk.data_ptr(), lay)
     launch_forward_tvl.launches += 1
     return out, chk
 
