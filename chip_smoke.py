@@ -2,15 +2,19 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, run its main
 path, hold every kernel against its plain PyTorch version, and time it.
 
-    python3 chip_smoke.py [--json PATH] [--only kalman,ssd,sv]
+    python3 chip_smoke.py [--json PATH] [--only kalman,ssd,sv,run]
                                           # from the repository root; one CUDA card
 
 ``--only`` runs the build and the named phase groups alone (kalman: [2]–[8],
-ssd: [9]–[11], sv: [12]–[14]); the kernels line then holds their kernels.
+ssd: [9]–[11], sv: [12]–[14], run: [15]); the kernels line then holds their
+kernels.
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build   — compile every kernel source with nvcc (sm_90a), all at once.
+1. build   — compile every kernel source with nvcc (sm_90a), all at once;
+   wait for the main path's libraries, while the clock builds (at the
+   lowest CPU priority) finish beside [2]–[4] (each is waited for at its
+   first use).
 2. full width — AFNS5, N=20 maturities, T=360, B=1024 and B=16384 draws
    (this file's numpy copy of bench.py's panel and draws, seeded): raw draws
    → untransform_params → transform_params → batched_loglik (the kernel),
@@ -27,7 +31,10 @@ Phases (any failure raises and the script exits non-zero):
    the plain float64 version at rtol 1e-9, each on the draws whose answer its
    type determines (it moves less than a quarter of the tolerance when the
    parameters move by 1e-7, resp. 1e-15, relative; at least 85% of draws).
-   The TVλ cases run on a panel from a DNS DGP that their draws fit.  On
+   The TVλ cases run on a panel from a DNS DGP that their draws fit.  All
+   but TVλ under the reference's Jacobian (the main path's) run on the
+   panels' first ``T_EDGE`` = 120 months, the windows and NaN columns
+   moved inside them.  On
    every case, every K1 layout against the thread layout bit for bit.
    Then AFNS5 at 360 maturities in float64, B = 256 and 1,024: the pick
    (warp, then the thread layout once four draws' rows pass a block's
@@ -64,7 +71,8 @@ Phases (any failure raises and the script exits non-zero):
    within 5% per draw), the float64 kernels against the plain float64
    versions at value rtol 1e-9 and gradient rtol 1e-6, the adjoint kernel's
    raw float64 outputs (K2b's eight, K3b's six) against the plain adjoint's
-   on the same inputs and checkpoints leaf by leaf (rtol 1e-6, atol 1e-9 ×
+   inside that plain gradient (the same inputs, checkpoints and
+   cotangent) leaf by leaf (rtol 1e-6, atol 1e-9 ×
    the leaf's largest entry in the draw), and the plain float64 adjoint
    against autograd of the plain recursion at B=64.  TVλ is held on the
    draws whose value and gradient each type determines: phase 3's
@@ -73,14 +81,17 @@ Phases (any failure raises and the script exits non-zero):
    (float64) of the raw parameters, and for float32 agreement with the
    plain float64 gradient to that quarter; the counts are printed.  There
    the float32 gradient is also held against the plain float32 one.  Then "1C" and TVλ with interior NaN columns, an
-   invalid draw and per-draw windows, B=2048.  On every case every forward
+   invalid draw and per-draw windows, B=2048.  The cases off the main
+   path's shapes (TVλ under exact_jacobian=True and the two with NaN
+   columns) run on the panels' first ``T_EDGE`` = 120 months: the plain
+   versions launch step by step, and their time goes with T.  On every case every forward
    layout (warp, octet) against the thread layout bit for bit on the value
    and every checkpoint word, float32 and float64, and every adjoint
    layout and store (warp and octet keeping the segment, one step or 9
    steps) against the thread layout bit for bit on the raw leaves, float32
    and float64 (torch.equal); the same on a four-state constant
    measurement (Svensson's loadings, the Ms = 4 instance, with the pick's
-   float64 leaves against the plain adjoint) and TVλ under both Jacobians
+   float64 leaves against the plain adjoint; T = 120) and TVλ under both Jacobians
    with per-draw windows, B=512; and AFNS5 at 360 maturities in
    float64, where 64 draws pick the warp keeping a few steps (its leaves
    against the plain adjoint) and 256 the thread layout, and a forced octet
@@ -93,8 +104,9 @@ Phases (any failure raises and the script exits non-zero):
    versions 0; the result finite, through the trust-but-verify
    re-evaluation, no start that moved without gaining and, if any moved,
    above the best start.  For the starts that stopped at iteration 0 the
-   stop is checked in float64 through the plain versions: no Armijo point
-   among their 25 probes along −g.  AFNS5 (K2f/K2b) on a panel simulated
+   stop is checked in float64 through the kernels' float64 instances (held
+   to the plain versions in [3] and [6]): no Armijo point among their 25
+   probes along −g.  AFNS5 (K2f/K2b) on a panel simulated
    from the model at the first of bench's draws, as bench.py's newton bench
    does; then TVλ (K3f/K3b) on a panel simulated from the TVλ EKF's
    nonlinear measurement at the first of its starts.  Then small "1C" and
@@ -104,8 +116,9 @@ Phases (any failure raises and the script exits non-zero):
    (``PARENT_FITS``) bit for bit.
 8. rolling windows — ``estimate_windows`` for AFNS5 and TVλ on phase 7's
    panels: W=8 expanding windows [0, 248+16w) × S=32 starts (256 draws),
-   launch counts as in 7; each window's best ll against ``estimate`` on
-   that window alone from the same starts, at rtol 1e-5; the wall time;
+   launch counts as in 7; the shortest and the longest window's best ll
+   against ``estimate`` on that window alone from the same starts, at rtol
+   1e-5; the wall time;
    the record against ``PARENT_FITS`` bit for bit.
 9. K4 at full width — the score-driven loss kernel on bench's DNS panel
    (benchmarks/common.py's, seed 0, +4), N=20, T=360: 1SSD-NNS and SSD-NS at
@@ -121,10 +134,10 @@ Phases (any failure raises and the script exits non-zero):
    the plain version is −inf under every nudge the kernel must be −inf, and
    finite where it determines a finite value.
    Then 1RWSD-NNS, 1SD-NNS-Anchored, 3SRWSD-NNS-Anchored and SRWSD-NS at
-   B=512 on the panel with a NaN column at the window's first step (a
-   transition-only step that is no target) and a partially NaN column
-   after the window's end, window [120, 300): finite; the window [130,
-   340), which observes the partial column: −Inf; an invalid draw: −Inf.
+   B=512 on the panel's first 120 months with a NaN column at the window's
+   first step (a transition-only step that is no target) and a partially
+   NaN column after the window's end, window [40, 100): finite; the window
+   [43, 113), which observes the partial column: −Inf; an invalid draw: −Inf.
 10. K4 timing — CUDA events at B=1, 23, 257, 16384 for 1SSD-NNS and SSD-NS,
     float32; the plain version once at B=257; the bound from the operation
     count of the recursion on these inputs.  Then, at B=1 in both types,
@@ -137,7 +150,8 @@ Phases (any failure raises and the script exits non-zero):
 11. ``estimate_steps`` on bench's config 6 ("ssd-nns-m3"): 1SSD-NNS, N=20,
     T=360, the DNS panel, 3 jittered starts of ``ssd_nns_params``, the
     default groups (Nelder–Mead, 500 iterations, on the 22-parameter head;
-    the closed-form (δ, Φ) solve), 10 group iterations, with the launch
+    the closed-form (δ, Φ) solve), ``SSD_GROUP_ITERS`` = 1 group
+    iteration (the reference's 10 take 80–90 s of host time), with the launch
     counts set to 0 just before it: K4 ≥ 1, its plain version 0.  The grid
     winner is the plain float64 version's, or their plain float64 losses
     differ by less than the float32 tolerance; the ll is finite and no
@@ -160,7 +174,7 @@ Phases (any failure raises and the script exits non-zero):
     mean gap within 3 standard errors of the gaps' spread plus the largest
     float32 gap at σ_h=0 on the same draws, the median relative gap under
     1e-4.  Then
-    "1C" at D=64, P=128, the float64 kernel against the plain version at
+    "1C" at D=64, P=128, T=120, the float64 kernel against the plain version at
     rtol 1e-9 on: NaN columns, ess_threshold 0 and 1.5, every offset u = 0,
     96 live of 128 slots, per-draw (φ_h, σ_h); two invalid draws in each
     (Φ₁₁ > 1 and σ² < 0) give −inf.  And at phase 14's shapes (D=392,
@@ -171,7 +185,7 @@ Phases (any failure raises and the script exits non-zero):
     float64, and on every "1C" edge case (float64, also against the plain
     version at rtol 1e-9) and its −inf draws in float32.  And
     above 1,024 slots (several slots a thread, their state in the wrapper's
-    scratch): AFNS5 at full width, D=16, P=1152 and 2048 (2000 live),
+    scratch): AFNS5 at full width, T=120, D=16, P=1152 and 2048 (2000 live),
     float64 at rtol 1e-9 with an invalid draw −inf.
 13. K5 timing — CUDA events, float32: config 3 (D=1000, P=1024, 1000
     live), the batches of phase 14's search (8 and 8×49 draws, P=256,
@@ -192,8 +206,37 @@ Phases (any failure raises and the script exits non-zero):
     batch; the ll, iterations, launches by batch and best parameters equal
     to the block kernel's recorded result (``PARENT_SV``) bit for bit; the
     wall and K5's share of it.  Then "1C" in float64 (T=120, 2 starts, 128 particles,
-    max_iters=30) on the card against the same call on the CPU: the same
+    max_iters=``SV_CPU_ITERS`` = 5) on the card against the same call on the CPU: the same
     best start, ll at rtol 1e-8, the same iterations.
+15. ``run()`` — the reference's driver on "1C", N=20, T=360, float32, in
+    a temporary working directory: the reference's data, maturity and
+    initial-parameter CSVs (a stationary point of this file's DNS DGP, on
+    ``make_dns_panel``'s panel).  ``run("1", 357, 12, True, "1C",
+    "float32", window_type="expanding")``: the in-sample fit at the
+    reference's budget (10 group iterations of a 500-iteration Nelder–Mead
+    over all 20 parameters, every candidate batch one K1 launch), then 4
+    origins, each re-estimated the same way, forecast, sharded, merged and
+    exported; with the launch counts set to 0 just before it: K1 ≥ 1, its
+    plain version 0.  Checks: 5 fits, none ending below its start's ll;
+    the in-sample ll within rtol 1e-4 of the plain float64 loss on the CPU
+    at the written parameters; every artifact present and finite, the
+    merged DB with 4 rows, the forecast CSV 48 × 22; the parameters' and
+    the forecast CSV's hashes and K1's launches equal to ``RUN_FITS``.
+    Prints the wall by stage (``StageTimer``), K1's launches by batch size
+    (eager, or replayed from the CUDA graph of a Nelder–Mead iteration's
+    evaluation), its device time (launches × the time a launch at that
+    batch size takes by CUDA events) and share of the wall, and the
+    Nelder–Mead groups' time outside K1.  Then the same 4
+    origins through ``run(..., run_optimization=False,
+    batched_windows=True)``: ``estimate_windows`` on K2f/K2b (launch counts
+    ≥ 1, plain versions 0), the same artifact checks.  Then K1 at the
+    path's batch sizes (B=1 at the fit, B=21 Nelder–Mead's first simplex),
+    its graph replay against its eager launch bit for bit, and K2f/K2b at
+    the batched run's 4 windows (the value and the raw gradient)
+    against their plain versions on the same float32 inputs (rtol 5e-4,
+    atol 1e-2; the gradient by bench.py's cosine/norm criterion), each
+    timed beside its plain version (the same call, by CUDA events) and its
+    bound.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON object {"kernels": [...]} with each kernel's launches on the
@@ -203,10 +246,12 @@ main path, error, times and bound; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
@@ -230,6 +275,11 @@ TOLS = {torch.float32: (5e-4, 1e-2, 1e-7), torch.float64: (1e-9, 0.0, 1e-15)}
 
 # ---- this script's copy of bench.py's panel and draws ----------------------
 N_MATURITIES, T_MONTHS = 20, 360
+#: the months of the edge cases' panels: the plain versions step through
+#: every month, launch by launch, so their time goes with T
+T_EDGE = 120
+#: [11]'s group iterations and the iterations of [14]'s fit on the CPU
+SSD_GROUP_ITERS, SV_CPU_ITERS = 1, 5
 MATURITIES = np.array([3, 6, 9, 12, 15, 18, 21, 24, 30, 36, 48, 60, 72, 84,
                        96, 108, 120, 180, 240, 360], dtype=np.float64) / 12.0
 
@@ -545,7 +595,11 @@ def bound(bytes_, flops):
 
 class PlainCore(torch.autograd.Function):
     """The plain versions of K2f and K2b as one autograd Function, on any
-    device: the reference the kernels are held against on the card."""
+    device: the reference the kernels are held against on the card.  The
+    checkpoints of the last forward stay in ``chk``, the plain adjoint's raw
+    outputs of the last backward in ``leaves``."""
+
+    chk = leaves = None
 
     @staticmethod
     def forward(ctx, Z, d, Phi, delta, Om, ovar, beta0, P0, data, masks, win):
@@ -553,6 +607,7 @@ class PlainCore(torch.autograd.Function):
 
         ll, chk = G.forward_reference(Z, d, Phi, delta, Om, ovar, beta0, P0,
                                       data, masks, win)
+        PlainCore.chk = chk
         ctx.win = win
         ctx.save_for_backward(Z, d, Phi, delta, Om, ovar, data, masks, chk, ll)
         return ll
@@ -565,11 +620,15 @@ class PlainCore(torch.autograd.Function):
         g = torch.where(torch.isfinite(ll), g, torch.zeros_like(g))
         grads = G.adjoint_reference(Z, d, Phi, delta, Om, ovar, data, masks,
                                     ctx.win, chk, g)
+        PlainCore.leaves = grads
         return (*grads, None, None, None)
 
 
 class PlainTvlCore(torch.autograd.Function):
-    """The plain versions of K3f and K3b as one autograd Function."""
+    """The plain versions of K3f and K3b as one autograd Function; ``chk``
+    and ``leaves`` as :class:`PlainCore`'s."""
+
+    chk = leaves = None
 
     @staticmethod
     def forward(ctx, Phi, delta, Om, ovar, beta0, P0, data, masks, win, mats, exact):
@@ -577,6 +636,7 @@ class PlainTvlCore(torch.autograd.Function):
 
         ll, chk = G.forward_reference_tvl(Phi, delta, Om, ovar, beta0, P0, data,
                                           masks, win, mats, exact)
+        PlainTvlCore.chk = chk
         ctx.win, ctx.exact = win, exact
         ctx.save_for_backward(Phi, delta, Om, ovar, data, masks, mats, chk, ll)
         return ll
@@ -589,6 +649,7 @@ class PlainTvlCore(torch.autograd.Function):
         g = torch.where(torch.isfinite(ll), g, torch.zeros_like(g))
         grads = G.adjoint_reference_tvl(Phi, delta, Om, ovar, data, masks, ctx.win,
                                         mats, ctx.exact, chk, g)
+        PlainTvlCore.leaves = grads
         return (*grads, None, None, None, None, None)
 
 
@@ -1171,9 +1232,11 @@ def full_width_fit(yfm, optimize, spec, spec64, sim, starts, dev):
     versions never.  The result passes the trust-but-verify re-evaluation,
     no start that moved failed to gain, and a moved run beats the best
     start.  Starts that stopped at iteration 0 are checked in float64
-    through the plain versions: no Armijo point among their 25 probes
-    along −g.  Returns the report."""
+    through the kernels' float64 instances, which [3] and [6] hold against
+    the plain versions: no Armijo point among their 25 probes along −g.
+    Returns the report."""
     from yieldfactormodels_jl_tpu_torch.ops import fused_kf
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
 
     f32, f64 = torch.float32, torch.float64
     S = starts.shape[0]
@@ -1215,16 +1278,19 @@ def full_width_fit(yfm, optimize, spec, spec64, sim, starts, dev):
     if moved < S:
         # The reference's first step is −g from α = 1 with at most 25
         # backtracks by 0.8: show that a start that stopped there had no
-        # Armijo point, in float64 through the plain versions — the plain
-        # adjoint's gradient at the start and the plain loglik at all 25
-        # probes of every such start, in one batch.
+        # Armijo point, in float64 — the float64 adjoint kernel's gradient at
+        # the start and K1's float64 loglik at all 25 probes of every such
+        # start, in one batch.  (The plain versions take ≈15 s at these
+        # shapes on an H100, a launch a step; [6] holds these instances to
+        # them.)
         sim64 = torch.as_tensor(sim, device=dev)
         X = raw0_64[torch.as_tensor(still, device=dev)]
-        f0, g0 = raw_value_and_grad(yfm, spec64, X, sim64, plain_core(spec64))
+        core = G._TvlCore.apply if spec64.family == "kalman_tvl" else G._KalmanCore.apply
+        f0, g0 = raw_value_and_grad(yfm, spec64, X, sim64, core)
         alphas = 0.8 ** torch.arange(25, device=dev, dtype=f64)
         probes = (X[None] - alphas[:, None, None] * g0[None]).reshape(-1, X.shape[1])
-        ll_p = fused_kf.batched_loglik_reference(
-            spec64, yfm.transform_params(spec64, probes), sim64)
+        ll_p = fused_kf._batched_loglik(
+            spec64, yfm.transform_params(spec64, probes), sim64, dtype=f64)
         f_p = torch.where(torch.isfinite(ll_p), -ll_p, torch.full_like(ll_p, 1e12))
         armijo = f_p.reshape(25, -1) <= f0[None] - 1e-4 * alphas[:, None] * (g0 * g0).sum(1)[None]
         check(not bool(armijo.any()), f"estimate: {int(armijo.any(0).sum())} starts that "
@@ -1315,21 +1381,20 @@ def windows_fit(yfm, optimize, label, spec, sim, starts, ends):
           f"{label}: shapes {xs.shape} {lls.shape}")
     best = lls.max(1)
     check(bool(np.isfinite(best).all()), f"{label}: a window has no finite ll")
-    alone = []
-    for w, end in enumerate(ends):
-        _, ll_w, _, _ = yfm.estimate(spec, sim, starts.T, start=0, end=end, max_iters=50)
-        alone.append(ll_w)
-    alone = np.array(alone)
-    err = np.abs(best - alone)
+    held = (0, W - 1)   # the shortest and the longest window
+    alone = np.array([yfm.estimate(spec, sim, starts.T, start=0, end=ends[w],
+                                   max_iters=50)[1] for w in held])
+    err = np.abs(best[list(held)] - alone)
     check(bool((err <= 1e-5 * np.abs(alone)).all()),
-          f"{label}: windows' best ll differ from estimate per window: {best} vs {alone}")
-    print(f"  {label}: each window's best ll equals estimate on that window alone "
+          f"{label}: windows' best ll differ from estimate per window: "
+          f"{best[list(held)]} vs {alone}")
+    print(f"  {label}: windows {list(held)}' best ll equal estimate on that window alone "
           f"(max rel err {float((err / np.abs(alone)).max()):.3e}); lls {np.round(best, 3)}")
     record = fit_record(counts, ll=[float.hex(float(v)) for v in best],
                         lls_sha256=sha16(np.asarray(lls, dtype=np.float64)),
                         best_sha256=sha16(np.asarray(xs, dtype=np.float64)))
     return {"W": W, "S": S, "wall_s": wall_s, "counts": counts,
-            "best_ll": best.tolist(), "estimate_ll": alone.tolist(),
+            "best_ll": best.tolist(), "estimate_ll": dict(zip(held, alone.tolist())),
             "max_rel_err": float((err / np.abs(alone)).max()), "record": record}
 
 
@@ -1568,17 +1633,36 @@ def ssd_chain_ms(spec, data, latencies, clock_mhz, start=0, end=None):
     return total / (clock_mhz * 1e6) * 1e3, cycles(observed)
 
 
+#: ``cuobjdump -sass`` of a library, by path: started in the background
+#: right after the build (:func:`prefetch_sass`), read by :func:`sass_loop_counts`
+_SASS_DUMPS = {}
+
+
+def _cuobjdump(lib_path):
+    tool = os.path.join(os.path.dirname(_nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+
+
+def prefetch_sass(pool, lib_paths):
+    """Start ``cuobjdump -sass`` on each library in ``pool``'s threads, so
+    that the phases that count SASS instructions do not wait for it."""
+    for path in lib_paths:
+        _SASS_DUMPS[str(path)] = pool.submit(_cuobjdump, path)
+
+
 def sass_loop_counts(lib_path, needle="ssd_loss_kernel"):
     """SASS instructions of each compiled ``needle`` kernel in a library
     (``cuobjdump -sass``): the whole function, and its step loop — the
     instructions from the target of its widest backward branch to that
     branch.  Keyed by the kernel's template arguments as they appear in its
     mangled name; None when the toolkit has no cuobjdump."""
-    tool = os.path.join(os.path.dirname(_nvcc_path()), "cuobjdump")
-    if not os.path.exists(tool):
+    dump = _SASS_DUMPS.pop(str(lib_path), None)
+    text = _cuobjdump(lib_path) if dump is None else dump.result()
+    if text is None:
         return None
-    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
     out = {}
     for block in text.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
@@ -2040,7 +2124,7 @@ def sv_phases(yfm, dev, report):
         fused_pf.pf_loglik_batch_reference(spec64, *args_e, n_particles=200, sv_sigma=0.0),
         "shared noise f32 kernel vs plain f64 (paired)"))
 
-    print("  \"1C\" edge cases, D=64, P=128, f64 kernel vs plain f64 at rtol 1e-9")
+    print(f"  \"1C\" edge cases, D=64, P=128, T={T_EDGE}, f64 kernel vs plain f64 at rtol 1e-9")
     dns64, _ = yfm.create_model("1C", MATURITIES, float_type="float64")
     Dc, Pc = 64, 128
     rng = np.random.default_rng(13)
@@ -2049,12 +2133,12 @@ def sv_phases(yfm, dev, report):
     pc[1, dns64.layout["obs_var"][0]] = -4e-4     # σ² < 0: f ≤ 0
     pc = torch.as_tensor(pc, device=dev)
     dpanel = make_dns_panel(seed=2)
-    dpanel64 = torch.as_tensor(dpanel, device=dev)
-    nan_panel = dpanel.copy()
+    dpanel64 = torch.as_tensor(np.ascontiguousarray(dpanel[:, :T_EDGE]), device=dev)
+    nan_panel = dpanel[:, :T_EDGE].copy()
     nan_panel[:, 40] = np.nan
-    nan_panel[7, 200] = np.nan
-    nzc = torch.as_tensor(rng.standard_normal((Dc, T_MONTHS - 1, Pc)), device=dev)
-    uc = torch.as_tensor(rng.uniform(size=(Dc, T_MONTHS - 1)), device=dev)
+    nan_panel[7, 100] = np.nan
+    nzc = torch.as_tensor(rng.standard_normal((Dc, T_EDGE - 1, Pc)), device=dev)
+    uc = torch.as_tensor(rng.uniform(size=(Dc, T_EDGE - 1)), device=dev)
     phis = torch.linspace(0.5, 0.98, Dc, device=dev, dtype=f64)
     sigs = torch.linspace(0.05, 0.5, Dc, device=dev, dtype=f64)
     edge = {"NaN columns": ({}, torch.as_tensor(nan_panel, device=dev), uc),
@@ -2081,17 +2165,18 @@ def sv_phases(yfm, dev, report):
                            dpanel64.float(), nzc.float(), uc.float(), Pc, "1C f32")
     check(bool((got[:2] == -math.inf).all()), f"1C f32: the invalid draws gave {got[:2]}")
 
-    print("  above 1,024 slots (several slots a thread, state in scratch): AFNS5, D=16, "
-          "P=1152 and 2048 (2000 live), f64 kernel vs plain f64 at rtol 1e-9")
+    print(f"  above 1,024 slots (several slots a thread, state in scratch): AFNS5, D=16, "
+          f"P=1152 and 2048 (2000 live), T={T_EDGE}, f64 kernel vs plain f64 at rtol 1e-9")
     rng = np.random.default_rng(17)
     pm = stationary_draws(spec64, base, 16, seed=4)
     pm[3, spec64.layout["phi"][0]] = 1.5          # Φ₁₁ > 1: −inf
     pm = torch.as_tensor(pm, device=dev, dtype=f64)
+    panel_e = panel64[:, :T_EDGE].contiguous()
     for Pm, live in ((1152, 1152), (2048, 2000)):
-        nzm = torch.as_tensor(rng.standard_normal((16, T_MONTHS - 1, Pm)), device=dev)
-        um = torch.as_tensor(rng.uniform(size=(16, T_MONTHS - 1)), device=dev)
-        got = bp(spec64, pm, panel64, nzm, um, n_particles=live)
-        ref = fused_pf.pf_loglik_batch_reference(spec64, pm, panel64, nzm, um,
+        nzm = torch.as_tensor(rng.standard_normal((16, T_EDGE - 1, Pm)), device=dev)
+        um = torch.as_tensor(rng.uniform(size=(16, T_EDGE - 1)), device=dev)
+        got = bp(spec64, pm, panel_e, nzm, um, n_particles=live)
+        ref = fused_pf.pf_loglik_batch_reference(spec64, pm, panel_e, nzm, um,
                                                  n_particles=live)
         check(bool(got[3] == -math.inf) and int(torch.isfinite(ref).sum()) >= 14,
               f"P={Pm}: the invalid draw must give −inf and the rest be finite")
@@ -2263,14 +2348,14 @@ def sv_phases(yfm, dev, report):
           f"{best_start}")
     print(f"  deterministic: ok; best ll {a['ll']:.6f} ≥ best start {best_start:.6f}")
 
-    print("  \"1C\" f64 on the card vs the CPU: T=120, S=2, P=128, max_iters=30")
+    print(f"  \"1C\" f64 on the card vs the CPU: T=120, S=2, P=128, max_iters={SV_CPU_ITERS}")
     dns_starts = kalman_draws(dns64, 2, np.random.default_rng(15), [0.4, -0.1, 0.05])
     raw_c = yfm.untransform_params(dns64, torch.as_tensor(dns_starts)).numpy()
     small = dpanel[:, :120]
     gen = torch.Generator().manual_seed(16)
     noise = (torch.randn(119, 128, generator=gen, dtype=f64),
              torch.rand(119, generator=gen, dtype=f64))
-    kw = dict(n_particles=128, max_iters=30, noise=noise)
+    kw = dict(n_particles=128, max_iters=SV_CPU_ITERS, noise=noise)
     on_card = yfm.estimate_sv(dns64, small, raw_c, **kw)
     on_cpu = yfm.estimate_sv(dns64, small, raw_c, device="cpu", **kw)
     check(int(np.argmax(on_card[2])) == int(np.argmax(on_cpu[2])),
@@ -2354,24 +2439,30 @@ def kalman_phases(yfm, dev, report):
     gapped[:, 50] = np.nan
     gapped[3, 120] = np.nan
     gapped[:, 200:203] = np.nan
-    gapped64 = torch.as_tensor(gapped, device=dev, dtype=f64)
     cases = []
     dns64, _ = yfm.create_model("1C", MATURITIES, float_type="float64")
     p = kalman_draws(dns64, Bo, rng, [0.4, -0.1, 0.05])
     p[5] = np.nan                                      # invalid draw → −inf
-    cases.append(("1C NaN columns + invalid row", dns64, p, gapped64, {}))
+    # the main path's families on the full panel (AFNS5 in [2]; TVλ under
+    # the reference's Jacobian here); the edge cases on its first T_EDGE months
+    gapped_e = gapped[:, :T_EDGE].copy()
+    gapped_e[:, 100:103] = np.nan
+    cases.append((f"1C NaN columns + invalid row, T={T_EDGE}", dns64, p,
+                  torch.as_tensor(gapped_e, device=dev, dtype=f64), {}))
     tvl32, _ = yfm.create_model("TVλ", MATURITIES)
     tvl64, _ = yfm.create_model("TVλ", MATURITIES, float_type="float64")
     dns_panel = make_dns_panel(seed=2)
     dns64_panel = torch.as_tensor(dns_panel, device=dev, dtype=f64)
     for exact in (False, True):
         s = dataclasses.replace(tvl64, exact_jacobian=exact)
-        cases.append((f"TVλ exact_jacobian={exact}", s,
-                      kalman_draws(s, Bo, rng, TVL_DELTA), dns64_panel, {}))
-    win = {"starts": torch.as_tensor(rng.integers(0, 100, Bo), device=dev),
-           "ends": torch.as_tensor(rng.integers(200, T_MONTHS + 1, Bo), device=dev)}
-    cases.append(("AFNS5 per-draw windows", spec64,
-                  make_param_batch(spec.n_params, Bo, seed=3), panel64, win))
+        cases.append((f"TVλ exact_jacobian={exact}" + (f", T={T_EDGE}" if exact else ""), s,
+                      kalman_draws(s, Bo, rng, TVL_DELTA),
+                      dns64_panel[:, :T_EDGE].contiguous() if exact else dns64_panel, {}))
+    win = {"starts": torch.as_tensor(rng.integers(0, 100, Bo), device=dev) // 3,
+           "ends": torch.as_tensor(rng.integers(200, T_MONTHS + 1, Bo), device=dev) // 3}
+    cases.append((f"AFNS5 per-draw windows, T={T_EDGE}", spec64,
+                  make_param_batch(spec.n_params, Bo, seed=3),
+                  panel64[:, :T_EDGE].contiguous(), win))
     # each kernel instance against the plain version in its own type, on
     # the draws where that type determines the answer (most draws)
     for what, s, p, data64, kw in cases:
@@ -2387,8 +2478,8 @@ def kalman_phases(yfm, dev, report):
                         f"{what}: {name} kernel vs plain {name}")
             pl, dl, st, en = fused_kf._prepare(s, pt, data64, kw.get("starts"),
                                                kw.get("ends"), None, dtype)
-            kf_layouts_equal(fused_kf, fused_kf.kernel_inputs(s, pl, dl, 0, T_MONTHS, st, en),
-                             f"{what} {name}")
+            kf_layouts_equal(fused_kf, fused_kf.kernel_inputs(s, pl, dl, 0, dl.shape[1], st,
+                                                              en), f"{what} {name}")
             if dtype == f32:
                 errs.append(err)
             if "invalid" in what:
@@ -2547,8 +2638,7 @@ def kalman_phases(yfm, dev, report):
         fwd_plain_ms = bwd_plain_ms = None
         if B == 1024:
             plain = [a.detach() if a is not None else None for a in args]
-            fwd_plain_ms = cuda_ms(lambda: G.forward_reference(*plain), reps=1, warmup=0)
-            chk_plain = G.forward_reference(*plain)[1]
+            fwd_plain_ms, (_, chk_plain) = timed_call(lambda: G.forward_reference(*plain))
             bwd_plain_ms = cuda_ms(lambda: G.adjoint_reference(
                 *plain[:6], *plain[8:], chk_plain, g), reps=1, warmup=0)
         X = yfm.untransform_params(spec, p32)
@@ -2595,9 +2685,8 @@ def kalman_phases(yfm, dev, report):
             fwd_plain_ms = bwd_plain_ms = None
             if not exact and B == 1024:
                 plain = [a.detach() if torch.is_tensor(a) else a for a in args]
-                fwd_plain_ms = cuda_ms(lambda: G.forward_reference_tvl(*plain), reps=1,
-                                       warmup=0)
-                chk_plain = G.forward_reference_tvl(*plain)[1]
+                fwd_plain_ms, (_, chk_plain) = timed_call(
+                    lambda: G.forward_reference_tvl(*plain))
                 bwd_plain_ms = cuda_ms(lambda: G.adjoint_reference_tvl(
                     *plain[:4], *plain[6:], chk_plain, g), reps=1, warmup=0)
             X = yfm.untransform_params(s32, p32)
@@ -2736,26 +2825,39 @@ def kalman_phases(yfm, dev, report):
     dns32, _ = yfm.create_model("1C", MATURITIES)
     p_dns = kalman_draws(dns64, 2048, rng, [0.4, -0.1, 0.05])
     p_dns[5] = np.nan                                  # invalid draw
+    # the main path's shapes (AFNS5 and TVλ under the reference's Jacobian,
+    # T=360) in full; the edge cases (the other Jacobian, NaN columns, an
+    # invalid draw, per-draw windows) on the panels' first T_EDGE months,
+    # since the plain versions' time goes with the steps
+    wins_edge = wins[0] // 3, wins[1] // 3            # starts < 34, ends ≥ 66
+    gapped_edge = gapped[:, :T_EDGE].copy()
+    gapped_edge[3, 100] = np.nan
+    gapped_edge[:, 80:83] = np.nan
     grad_cases = [
         ("AFNS5 B=1024", spec, spec64, draws[1024], panel, None),
-        ('"1C" NaN columns, invalid draw, per-draw windows, B=2048', dns32, dns64,
-         torch.as_tensor(p_dns, device=dev), gapped, wins),
+        (f'"1C" NaN columns, invalid draw, per-draw windows, B=2048, T={T_EDGE}', dns32,
+         dns64, torch.as_tensor(p_dns, device=dev), gapped_edge, wins_edge),
     ]
     for exact in (False, True):
-        grad_cases.append((f"TVλ exact_jacobian={exact} B=1024",
+        grad_cases.append((f"TVλ exact_jacobian={exact} B=1024"
+                           + (f", T={T_EDGE}" if exact else ""),
                            dataclasses.replace(tvl32, exact_jacobian=exact),
                            dataclasses.replace(tvl64, exact_jacobian=exact),
                            torch.as_tensor(kalman_draws(tvl64, 1024, rng, TVL_DELTA),
-                                           device=dev), dns_panel, None))
+                                           device=dev),
+                           np.ascontiguousarray(dns_panel[:, :T_EDGE]) if exact else dns_panel,
+                           None))
     p_tvl = kalman_draws(tvl64, 2048, rng, TVL_DELTA)
     p_tvl[5] = np.nan                                  # invalid draw
-    gapped_dns = dns_panel.copy()
+    gapped_dns = dns_panel[:, :T_EDGE].copy()
     gapped_dns[:, 50] = np.nan
-    gapped_dns[3, 120] = np.nan
-    grad_cases.append(("TVλ NaN columns, invalid draw, per-draw windows, B=2048", tvl32,
-                       tvl64, torch.as_tensor(p_tvl, device=dev), gapped_dns, wins))
+    gapped_dns[3, 100] = np.nan
+    grad_cases.append((f"TVλ NaN columns, invalid draw, per-draw windows, B=2048, T={T_EDGE}",
+                       tvl32, tvl64, torch.as_tensor(p_tvl, device=dev), gapped_dns,
+                       wins_edge))
     for what, s32, s64, p64, data_np, win in grad_cases:
         tvl = s64.family == "kalman_tvl"
+        T_c = data_np.shape[1]
         fwd_k, bwd_k, fwd_p, bwd_p = launch_counters(s64)
         names = ("K3f", "K3b") if tvl else ("K2f", "K2b")
         data32 = torch.as_tensor(data_np, device=dev, dtype=f32)
@@ -2764,7 +2866,7 @@ def kalman_phases(yfm, dev, report):
         X32 = X64.to(f32)
         kw = {} if win is None else {"win_starts": win[0], "win_ends": win[1]}
         wkw = {} if win is None else {"starts": win[0], "ends": win[1]}
-        value_fn, vag = optimize.fused_objectives(s32, data32, 0, T_MONTHS, **kw)
+        value_fn, vag = optimize.fused_objectives(s32, data32, 0, T_c, **kw)
         fwd_k.launches = bwd_k.launches = 0
         fwd_p.calls = bwd_p.calls = 0
         v32, g32 = vag(X32)
@@ -2793,6 +2895,8 @@ def kalman_phases(yfm, dev, report):
                     ref=None if dtype == f64 else g_ref)
                 if dtype == f64:
                     v_ref, g_ref = v_p, g_p
+                    plain_chk = PlainTvlCore.chk[:X64.shape[0]]
+                    plain_leaves = [x[:X64.shape[0]] for x in PlainTvlCore.leaves]
                 else:
                     g_plain32 = g_p
                 det[dtype] = d_val & d_grad
@@ -2803,6 +2907,7 @@ def kalman_phases(yfm, dev, report):
                 check(n_both >= 0.5 * n_fin, f"{what}: {dtype} determines too few gradients")
         else:
             v_ref, g_ref = raw_value_and_grad(yfm, s64, X64, data64, plain_core(s64), win)
+            plain_chk, plain_leaves = PlainCore.chk, PlainCore.leaves
         check(torch.equal(fin, v_ref < optimize.PENALTY_THRESH), f"{what}: validity differs from plain")
         d32, d64 = det[f32], det[f64]
         grad_errs[names[0]].append(close(v32[d32], v_ref[d32], 5e-4, 1e-2,
@@ -2820,35 +2925,37 @@ def kalman_phases(yfm, dev, report):
         close(v64[d64], v_ref[d64], 1e-9, 0.0, f"{what}: f64 kernels value vs plain f64")
         grads_close(g64[d64], g_ref[d64], 1e-6, f"{what}: f64 kernels gradient vs plain f64")
         # the adjoint kernel's raw outputs, leaf by leaf, against the plain
-        # adjoint on the same float64 inputs, checkpoints and gated cotangent
+        # adjoint's in the plain gradient above: the same float64 inputs, the
+        # plain forward's checkpoints (in the kernel's draw-minor layout) and
+        # the objective's cotangent, −1 on the finite draws
         args64 = [a.detach() if torch.is_tensor(a) else a for a in G.core_inputs(
-            s64, yfm.transform_params(s64, X64), data64, 0, T_MONTHS, **wkw)]
+            s64, yfm.transform_params(s64, X64), data64, 0, T_c, **wkw)]
         if tvl:
             bufs64 = G.lay_out_tvl(*args64[:10])
             ll64, chk64 = G.launch_forward_tvl(bufs64, args64[10])
         else:
             bufs64 = G.lay_out(*args64)
             ll64, chk64 = G.launch_forward(bufs64)
+        cot_obj = torch.where(torch.isfinite(ll64), -torch.ones_like(ll64),
+                              torch.zeros_like(ll64))
+        chk_p = plain_chk.reshape(plain_chk.shape[0], -1).T.contiguous()
+        check(chk_p.shape == chk64.shape, f"{what}: checkpoints {tuple(chk_p.shape)} vs "
+              f"{tuple(chk64.shape)}")
+        got_leaves = (G.launch_backward_tvl(bufs64, args64[10], chk_p, cot_obj) if tvl
+                      else G.launch_backward(bufs64, chk_p, cot_obj))
+        grad_errs[names[1] + "_leaves"].append(leaves_close(
+            got_leaves, plain_leaves, 1e-6, 1e-9,
+            f"{what}: f64 {names[1]} leaves vs plain f64 adjoint", rows=d64))
         cot = torch.rand(ll64.shape, generator=torch.Generator(device=dev).manual_seed(5),
                          device=dev, dtype=f64) + 0.5
         cot = torch.where(torch.isfinite(ll64), cot, torch.zeros_like(cot))
-        chk_ref = chk64.T.reshape(ll64.shape[0], G._seg(T_MONTHS)[1], -1)
-        if tvl:
-            got_leaves = G.launch_backward_tvl(bufs64, args64[10], chk64, cot)
-            ref_leaves = G.adjoint_reference_tvl(*args64[:4], *args64[6:], chk_ref, cot)
-        else:
-            got_leaves = G.launch_backward(bufs64, chk64, cot)
-            ref_leaves = G.adjoint_reference(*args64[:6], *args64[8:], chk_ref, cot)
-        grad_errs[names[1] + "_leaves"].append(leaves_close(
-            got_leaves, ref_leaves, 1e-6, 1e-9,
-            f"{what}: f64 {names[1]} leaves vs plain f64 adjoint", rows=d64))
         # every adjoint layout against the thread layout on the raw leaves,
         # float64 (the inputs above) and float32 (the same draws)
         exact = bool(args64[10]) if tvl else False
         fwd_layouts_equal(bufs64, tvl, exact, f"{what}: f64 {names[0]}")
         kfg_layouts_equal(bufs64, chk64, cot, tvl, exact, f"{what}: f64 {names[1]} layouts")
         args32 = [a.detach() if torch.is_tensor(a) else a for a in G.core_inputs(
-            s32, yfm.transform_params(s32, X32), data32, 0, T_MONTHS, **wkw)]
+            s32, yfm.transform_params(s32, X32), data32, 0, T_c, **wkw)]
         bufs32 = G.lay_out_tvl(*args32[:10]) if tvl else G.lay_out(*args32)
         ll32, chk32 = G.launch_forward_tvl(bufs32, exact) if tvl else G.launch_forward(bufs32)
         cot32 = torch.where(torch.isfinite(ll32), cot.to(f32), torch.zeros_like(ll32))
@@ -2873,7 +2980,8 @@ def kalman_phases(yfm, dev, report):
     # per-draw windows, each in both types with the f64 leaves against the
     # plain adjoint; and 360 maturities in float64, where no group layout
     # fits 256 draws at once and a forced one that cannot fit raises
-    for what, tvl, exact in (("Svensson Ms=4, per-draw windows, B=512", False, False),
+    for what, tvl, exact in ((f"Svensson Ms=4, per-draw windows, B=512, T={T_EDGE}", False,
+                              False),
                              ("TVλ exact_jacobian=False, per-draw windows, B=512", True, False),
                              ("TVλ exact_jacobian=True, per-draw windows, B=512", True, True)):
         for dtype in (f64, f32):
@@ -2887,8 +2995,10 @@ def kalman_phases(yfm, dev, report):
                 bufs = G.lay_out_tvl(*args[:10])
                 ll, chk = G.launch_forward_tvl(bufs, exact)
             else:
-                args = svensson_inputs(512, torch.as_tensor(panel, device=dev, dtype=dtype),
-                                       np.random.default_rng(22), (wins[0][:512], wins[1][:512]))
+                panel_e = torch.as_tensor(np.ascontiguousarray(panel[:, :T_EDGE]), device=dev,
+                                          dtype=dtype)
+                args = svensson_inputs(512, panel_e, np.random.default_rng(22),
+                                       (wins_edge[0][:512], wins_edge[1][:512]))
                 bufs = G.lay_out(*args)
                 ll, chk = G.launch_forward(bufs)
             fin = torch.isfinite(ll)
@@ -2900,7 +3010,7 @@ def kalman_phases(yfm, dev, report):
             _, picked = kfg_layouts_equal(bufs, chk, cot, tvl, exact,
                                           f"{what}: {str(dtype)[6:]} layouts")
             if dtype == f64 and not tvl:  # TVλ with windows: the B=2048 case above
-                chk_ref = chk.T.reshape(512, G._seg(T_MONTHS)[1], -1)
+                chk_ref = chk.T.reshape(512, G._seg(T_EDGE)[1], -1)
                 ref = (G.adjoint_reference_tvl(*args[:4], *args[6:], chk_ref, cot) if tvl else
                        G.adjoint_reference(*args[:6], *args[8:], chk_ref, cot))
                 leaves_close(picked, ref, 1e-6, 1e-9, f"{what}: f64 pick's leaves vs plain f64 "
@@ -3107,21 +3217,22 @@ def ssd_phases(yfm, dev, report):
         for B in (257, 2048):
             p64 = torch.as_tensor(ssd_draws(s64, base, B, seed=B), device=dev)
             k4_errs.append(hold_k4(f"{code} B={B}", s64, p64, bpanel64))
-    gp = bpanel.copy()
-    gp[:, 120] = np.nan     # the window's first step: transition-only, no target
-    gp[5, 330] = np.nan     # partially NaN: after the window's end, then observed
+    # the other families on the panel's first T_EDGE months
+    gp = bpanel[:, :T_EDGE].copy()
+    gp[:, 40] = np.nan      # the window's first step: transition-only, no target
+    gp[5, 110] = np.nan     # partially NaN: after the window's end, then observed
     gp64 = torch.as_tensor(gp, device=dev, dtype=f64)
     for code in ("1RWSD-NNS", "1SD-NNS-Anchored", "3SRWSD-NNS-Anchored", "SRWSD-NS"):
         s64, _ = yfm.create_model(code, MATURITIES, float_type="float64")
         p = ssd_draws(s64, ssd_nns_params(s64), 512, seed=5)
         p[3] = np.nan                                   # invalid draw → −inf
         p64 = torch.as_tensor(p, device=dev)
-        k4_errs.append(hold_k4(f"{code} B=512 NaN column, window [120, 300)", s64, p64,
-                               gp64, 120, 300))
-        check(bool(fused_ssd.batched_loss(s64, p64, gp64, 120, 300)[3] == -math.inf),
+        k4_errs.append(hold_k4(f"{code} B=512 NaN column, T={T_EDGE}, window [40, 100)",
+                               s64, p64, gp64, 40, 100))
+        check(bool(fused_ssd.batched_loss(s64, p64, gp64, 40, 100)[3] == -math.inf),
               f"{code}: the invalid draw must give −inf")
-        hold_k4(f"{code} B=512 window [130, 340) with the partial NaN column", s64, p64,
-                gp64, 130, 340, expect_all_inf=True)
+        hold_k4(f"{code} B=512 window [43, 113) with the partial NaN column", s64, p64,
+                gp64, 43, 113, expect_all_inf=True)
 
     # ---- 10. K4 timing ----------------------------------------------------------------
     begin_phase("[10] K4 timing (CUDA events), float32")
@@ -3189,7 +3300,8 @@ def ssd_phases(yfm, dev, report):
     report["k4_determined"] = k4_counts
 
     # ---- 11. estimate_steps on config 6 ------------------------------------------------
-    begin_phase("[11] estimate_steps: 1SSD-NNS, N=20, T=360, 3 starts, 10 group iterations")
+    begin_phase(f"[11] estimate_steps: 1SSD-NNS, N=20, T=360, 3 starts, {SSD_GROUP_ITERS} "
+                "group iteration(s)")
     cfg, _ = yfm.create_model("1SSD-NNS", MATURITIES)
     cfg64 = ssd_specs["1SSD-NNS"]
     starts6 = jitter_starts(ssd_nns_params(cfg), 3, scale=0.02).T  # (P, 3)
@@ -3202,7 +3314,7 @@ def ssd_phases(yfm, dev, report):
             fn.calls = 0
         t0 = time.perf_counter()
         init6, ll6, best6, conv6 = yfm.estimate_steps(cfg, bpanel, starts6, groups6,
-                                                      max_group_iters=10)
+                                                      max_group_iters=SSD_GROUP_ITERS)
         torch.cuda.synchronize()
         wall6 = time.perf_counter() - t0
         k4_launches = fused_ssd.batched_loss.launches
@@ -3271,7 +3383,378 @@ def ssd_phases(yfm, dev, report):
         "shapes": k4_shapes}
 
 
-PHASE_GROUPS = ("kalman", "ssd", "sv")
+# ---- the reference's driver: run() on "1C" at full width, phase 15 -----------
+
+#: ``run()``'s results in [15] on an H100: the first 16 hex digits of the
+#: sha256 of the in-sample fit's parameters (float64 bytes, as ``run``
+#: returns them) and of the sequential run's expanding-window forecast CSV
+#: (its bytes), and K1's launches; [15] must repeat them bit for bit
+#: (recorded on an NVIDIA H100 80GB HBM3)
+RUN_FITS = {"params_sha256": "18548d5b956ed1bb", "forecasts_sha256": "32270505768e6ae1",
+            "K1": 50936}
+
+RUN_T_IN, RUN_H = 357, 12   # in-sample end and horizon: origins 357..360
+RUN_DELTA = [0.4, -0.1, 0.05]
+
+
+@contextlib.contextmanager
+def _chdir(path):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def write_run_inputs(root, panel, p0):
+    """The reference's data, maturity and initial-parameter CSVs for thread
+    "1" and "1C" under ``root`` (the initial parameters relative to it, where
+    ``load_initial_parameters`` reads them with ``root`` as the working
+    directory)."""
+    data_dir = os.path.join(root, "YieldFactorModels.jl", "data")
+    init_dir = os.path.join(root, "YieldFactorModels.jl", "initializations", "1C")
+    os.makedirs(data_dir)
+    os.makedirs(init_dir)
+    np.savetxt(os.path.join(data_dir, "thread_id__1__data.csv"), panel, delimiter=",")
+    np.savetxt(os.path.join(data_dir, "thread_id__1__maturities.csv"), MATURITIES,
+               delimiter=",")
+    np.savetxt(os.path.join(init_dir, "init_params_1C.csv"), p0, delimiter=",")
+    return os.path.join(root, "YieldFactorModels.jl", "results", "thread_id__1", "1C")
+
+
+@contextlib.contextmanager
+def instrumented_run(yfm, timer, fits, k1_runs):
+    """Inside the block: ``timer`` records the walls of ``run``'s stages
+    (in-sample estimation, window estimations, the Nelder–Mead groups in
+    them, predicts, merge and export), each ending in a synchronize;
+    ``fits`` collects (end, ll) of every ``estimate_steps``; ``k1_runs``
+    (batch size, stage) of every K1 launch, eager or replayed from its CUDA
+    graph."""
+    import importlib
+
+    from yieldfactormodels_jl_tpu_torch import forecasting
+    from yieldfactormodels_jl_tpu_torch.estimation import optimize
+    from yieldfactormodels_jl_tpu_torch.models import api
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf
+
+    run_mod = importlib.import_module("yieldfactormodels_jl_tpu_torch.run")
+    active = ["other"]
+    targets = ((run_mod, "run_estimation", "insample_estimation"),
+               (forecasting, "_estimate_for_window", "window_estimation"),
+               (optimize, "_neldermead_group", "neldermead"),
+               (api, "predict", "predict"),
+               (forecasting, "merge_and_export", "merge_export"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+    def staged(fn, stage):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            outer, active[0] = active[0], stage
+            try:
+                with timer.stage(stage):
+                    out = fn(*a, **k)
+                    torch.cuda.synchronize()
+            finally:
+                active[0] = outer
+            return out
+        return run
+
+    steps = optimize.estimate_steps
+
+    def recorded_steps(*a, **k):
+        out = steps(*a, **k)
+        fits.append((int(k["end"]), float(out[1])))
+        return out
+
+    launch, replay = fused_kf.launch, fused_kf.LoglikGraph.__call__
+
+    def counted_launch(inputs, layout=None):
+        if not torch.cuda.is_current_stream_capturing():
+            k1_runs.append((inputs.out.shape[0], active[0]))
+        return launch(inputs, layout)
+
+    def counted_replay(graph, x):
+        k1_runs.append((graph.out.numel(), active[0]))
+        return replay(graph, x)
+
+    for (mod, name, stage), (_, _, fn) in zip(targets, saved):
+        setattr(mod, name, staged(fn, stage))
+    optimize.estimate_steps = recorded_steps
+    fused_kf.launch = counted_launch
+    fused_kf.LoglikGraph.__call__ = counted_replay
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        optimize.estimate_steps = steps
+        fused_kf.launch = launch
+        fused_kf.LoglikGraph.__call__ = replay
+
+
+def check_run_artifacts(res_dir, what, n_origins=4):
+    """The files a sequential or batched run leaves: in-sample CSVs, the
+    merged DB with one row an origin, the legacy window CSVs; all finite.
+    Returns the forecast CSV's path."""
+    import sqlite3
+
+    for suffix in ("factors_filtered_insample", "fit_filtered_insample",
+                   "factor_loadings_1_filtered_insample", "factors_filtered_outofsample",
+                   "fit_filtered_outofsample", "loss", "out_params"):
+        arr = np.loadtxt(os.path.join(res_dir, f"1C__thread_id__1__{suffix}.csv"),
+                         delimiter=",")
+        check(np.isfinite(arr).all(), f"{what}: {suffix} is not finite")
+    merged = os.path.join(res_dir, "db", "forecasts_expanding_merged.sqlite3")
+    conn = sqlite3.connect(merged)
+    try:
+        rows = conn.execute("SELECT task_id, loss FROM forecasts ORDER BY task_id").fetchall()
+    finally:
+        conn.close()
+    check([r[0] for r in rows] == list(range(RUN_T_IN, RUN_T_IN + n_origins)),
+          f"{what}: merged DB rows {rows}")
+    check(all(r[1] is not None and math.isfinite(r[1]) for r in rows),
+          f"{what}: a window's ll is not finite: {rows}")
+    for kind in ("forecasts", "fitted_params", "factors", "states", "fl1", "fl2"):
+        arr = np.loadtxt(os.path.join(res_dir, f"1C__thread_id__1__expanding_window_{kind}.csv"),
+                         delimiter=",")
+        check(np.isfinite(arr).all(), f"{what}: expanding_window_{kind} is not finite")
+        if kind == "forecasts":
+            check(arr.shape == (n_origins * RUN_H, 2 + N_MATURITIES),
+                  f"{what}: forecast CSV shape {arr.shape}")
+    print(f"  {what}: in-sample CSVs, merged DB ({len(rows)} rows) and window CSVs "
+          f"present and finite; forecast CSV {n_origins * RUN_H} × {2 + N_MATURITIES}")
+    return os.path.join(res_dir, "1C__thread_id__1__expanding_window_forecasts.csv")
+
+
+def timed_call(fn):
+    """One call of ``fn`` between CUDA events: (ms, its result)."""
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), out
+
+
+@contextlib.contextmanager
+def timed_plain_adjoint(G):
+    """Inside the block, time every call of the plain K2f and K2b
+    (``forward_reference``, ``adjoint_reference``) by CUDA events; yields
+    the dict of their last times in ms."""
+    times = {}
+    saved = {"forward": G.forward_reference, "adjoint": G.adjoint_reference}
+
+    def timing(name, fn):
+        def run(*a, **k):
+            times[name], out = timed_call(lambda: fn(*a, **k))
+            return out
+        run.calls = 0  # the plain versions count themselves by their module names
+        return run
+
+    G.forward_reference = timing("forward", saved["forward"])
+    G.adjoint_reference = timing("adjoint", saved["adjoint"])
+    try:
+        yield times
+    finally:
+        G.forward_reference, G.adjoint_reference = saved["forward"], saved["adjoint"]
+
+
+def run_phases(yfm, dev, report):
+    """Phase 15: the port's ``run()`` on "1C" at full width, sequential (the
+    Kalman ``estimate_steps`` on K1) and with batched windows (K2f/K2b).
+    Returns the kernels line's entries for K1, K2f and K2b on this path."""
+    import tempfile
+
+    from yieldfactormodels_jl_tpu_torch.estimation import optimize
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf_grad as G
+    from yieldfactormodels_jl_tpu_torch.utils.profiling import StageTimer
+
+    f32 = torch.float32
+    begin_phase(f'[15] run(): "1C", N={N_MATURITIES}, T={T_MONTHS}, float32, in-sample '
+                f"fit and 4 re-estimated origins, then the origins batched")
+    panel = make_dns_panel(seed=21)
+    spec64, _ = yfm.create_model("1C", MATURITIES, float_type="float64")
+    spec32, _ = yfm.create_model("1C", MATURITIES)
+    p0 = kalman_draws(spec64, 1, np.random.default_rng(23), RUN_DELTA)[0]
+    panel32 = torch.as_tensor(panel, device=dev, dtype=f32)
+    # every fit starts at p0 (the windows too: the reference passes the
+    # initial parameters to each origin); its ll on each fit's sample, as
+    # estimate_steps' first simplex vertex sees it
+    x0 = optimize._sanitize(yfm.untransform_params(spec64, torch.as_tensor(p0)).numpy())
+    c0 = yfm.transform_params(spec32, torch.as_tensor(x0, dtype=f32, device=dev))[None]
+    ll_start = {end: float(fused_kf.batched_loglik(spec32, c0, panel32, 0, end))
+                for end in range(RUN_T_IN, RUN_T_IN + 4)}
+    check(all(math.isfinite(v) for v in ll_start.values()), f"start lls {ll_start}")
+
+    with tempfile.TemporaryDirectory(prefix="yfm_run_") as root:
+        seq_root, bat_root = os.path.join(root, "sequential"), os.path.join(root, "batched")
+        res_seq = write_run_inputs(seq_root, panel, p0)
+        res_bat = write_run_inputs(bat_root, panel, p0)
+
+        timer, fits, k1_runs = StageTimer(), [], []
+        with _chdir(seq_root), instrumented_run(yfm, timer, fits, k1_runs), \
+                contextlib.redirect_stdout(io.StringIO()) as log:
+            fused_kf.batched_loglik.launches = 0
+            fused_kf.batched_loglik_reference.calls = 0
+            t0 = time.perf_counter()
+            _, params = yfm.run("1", RUN_T_IN, RUN_H, True, "1C", "float32",
+                                window_type="expanding", scratch_dir=seq_root + os.sep)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1_launches = fused_kf.batched_loglik.launches
+            k1_plain = fused_kf.batched_loglik_reference.calls
+        check(k1_launches >= 1 and k1_plain == 0,
+              f"run(): K1 launches {k1_launches}, plain-version calls {k1_plain}")
+        check(len(fits) == 5, f"run(): {len(fits)} estimate_steps calls, not 5")
+        for end, ll in fits:
+            check(ll >= ll_start[end], f"fit on [0, {end}) ended at ll {ll} below its "
+                  f"start's {ll_start[end]}")
+        fc_seq = check_run_artifacts(res_seq, "sequential run")
+        ll_in = float(np.loadtxt(os.path.join(res_seq, "1C__thread_id__1__loss.csv")))
+        out_params = np.loadtxt(os.path.join(res_seq, "1C__thread_id__1__out_params.csv"))
+        ll_cpu = float(yfm.get_loss(spec64, out_params, panel.astype(np.float32), 0,
+                                    RUN_T_IN, device="cpu"))
+        check(abs(ll_in - ll_cpu) <= 1e-4 * abs(ll_cpu),
+              f"in-sample ll {ll_in} vs the plain float64 loss on the CPU {ll_cpu}")
+        by_batch, by_stage = {}, {}
+        for B, stage in k1_runs:
+            by_batch[B] = by_batch.get(B, 0) + 1
+            by_stage[stage, B] = by_stage.get((stage, B), 0) + 1
+        check(sum(by_batch.values()) == k1_launches,
+              f"run(): {sum(by_batch.values())} K1 launches seen, {k1_launches} counted")
+        stages = timer.summary()
+        record = {"params_sha256": sha16(np.asarray(params, dtype=np.float64)),
+                  "forecasts_sha256": hashlib.sha256(open(fc_seq, "rb").read()).hexdigest()[:16],
+                  "K1": k1_launches}
+        print(f"  sequential run: wall {wall:.2f} s, in-sample ll {ll_in!r} (plain f64 on "
+              f"the CPU {ll_cpu!r}); fits (end, ll): {fits}")
+        print("  wall by stage: " + ", ".join(
+            f"{k} {v['total']:.2f} s ({v['count']}×)" for k, v in stages.items()))
+        print(f"  K1 launches {k1_launches} by batch size {dict(sorted(by_batch.items()))}")
+        print(f"  record: {json.dumps(record)}")
+        check(RUN_FITS == record, f"run(): differs from the recorded {RUN_FITS}")
+        print("  the recorded parameters, forecasts and K1 launches bit for bit")
+
+        with _chdir(bat_root), contextlib.redirect_stdout(io.StringIO()):
+            zero_counts(spec32)
+            t0 = time.perf_counter()
+            yfm.run("1", RUN_T_IN, RUN_H, True, "1C", "float32", window_type="expanding",
+                    run_optimization=False, batched_windows=True,
+                    scratch_dir=bat_root + os.sep)
+            torch.cuda.synchronize()
+            wall_b = time.perf_counter() - t0
+            counts_b = read_counts(spec32, None)
+        check(counts_b["forward"] == counts_b["backward"] >= 1 and counts_b["K1"] >= 1,
+              f"batched run: launches {counts_b}")
+        check(counts_b["plain"] == (0, 0, 0), f"batched run: plain versions ran {counts_b}")
+        check_run_artifacts(res_bat, "batched run")
+        print(f"  batched run: wall {wall_b:.2f} s, launches {counts_b}")
+
+    # the kernels at the path's shapes against their plain versions on the
+    # same float32 inputs, each plain call timed by CUDA events; K1 at every
+    # batch size the run launched, at the fit (one draw) or on Nelder–Mead's
+    # first simplex (more)
+    k1_rows = {}
+    x0t = torch.as_tensor(x0, device=dev)
+    simplex = yfm.transform_params(
+        spec64, torch.cat([x0t[None], x0t + torch.diag_embed(0.025 + 0.05 * x0t)]))
+    errs = []
+    for B in sorted(by_batch):
+        p64 = (torch.as_tensor(out_params, device=dev)[None] if B == 1
+               else simplex.repeat(-(-B // simplex.shape[0]), 1)[:B])
+        p32 = p64.float()
+        inputs = fused_kf.kernel_inputs(spec32, p32, panel32, 0, RUN_T_IN)
+        got = fused_kf.launch(inputs).clone()
+        plain_ms, ref = timed_call(lambda: fused_kf.batched_loglik_reference(
+            spec32, p32, panel32, 0, RUN_T_IN))
+        errs.append(close(got, ref, *TOLS[f32][:2], f"K1 B={B} vs plain"))
+        ms = cuda_ms(lambda: fused_kf.launch(inputs), reps=50)
+        bound_ms, bound_by = bound(*kernel_work(inputs, panel32))
+        k1_rows[B] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "launches": by_batch[B],
+                      "layout": fused_kf.layout_of(inputs)}
+        print(f"  K1 B={B} ({k1_rows[B]['layout']}): {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by})")
+    # the Nelder–Mead iterations' K1 runs replayed from a CUDA graph: the
+    # replay against the eager launch, bit for bit
+    X1 = yfm.untransform_params(spec64, simplex).float()
+    graph = fused_kf.LoglikGraph(lambda X: fused_kf.batched_loglik(
+        spec32, yfm.transform_params(spec32, X), panel32, 0, RUN_T_IN), X1[:1])
+    for row in X1[:4]:
+        eager = fused_kf.batched_loglik(spec32, yfm.transform_params(spec32, row[None]),
+                                        panel32, 0, RUN_T_IN)
+        check(torch.equal(graph(row[None]), eager), "K1's graph replay differs from "
+              "its eager launch")
+    print("  K1 replayed from its CUDA graph: the eager launch's bits on 4 draws")
+    k1_dev = {key: n * k1_rows[key[1]]["ms"] / 1e3 for key, n in by_stage.items()}
+    k1_s = sum(k1_dev.values())
+    nm_s = stages["neldermead"]["total"]
+    nm_k1 = sum(v for (stage, _), v in k1_dev.items() if stage == "neldermead")
+    print(f"  K1 on the card (launches × ms a launch at their batch size) {k1_s:.2f} s of "
+          f"the sequential run's {wall:.2f} s wall ({100 * k1_s / wall:.1f}%); {nm_k1:.2f} s "
+          f"of the Nelder–Mead groups' {nm_s:.2f} s, the rest (host and K1's set-up "
+          f"kernels) {nm_s - nm_k1:.2f} s ({100 * (nm_s - nm_k1) / nm_s:.1f}%)")
+    # K2f/K2b on the batched run's windows: 4 origins × 1 start, value and
+    # gradient in the raw parameters through the kernels against the plain
+    # versions
+    ends = torch.arange(RUN_T_IN, RUN_T_IN + 4, device=dev)
+    win = (torch.zeros_like(ends), ends)
+    X4 = torch.as_tensor(np.tile(x0, (4, 1)), device=dev, dtype=f32)
+    v_k, g_k = raw_value_and_grad(yfm, spec32, X4, panel32, G._KalmanCore.apply, win)
+    with timed_plain_adjoint(G) as plain_ms2:
+        v_p, g_p = raw_value_and_grad(yfm, spec32, X4, panel32, plain_core(spec32), win)
+    err_f = close(v_k, v_p, *TOLS[f32][:2], "K2f B=4 windows: −ll vs plain")
+    grad_agreement(g_k, g_p, "K2b B=4 windows: raw gradient vs plain")
+    err_b = float((g_k - g_p).abs().max())
+    args = G.core_inputs(spec32, yfm.transform_params(spec32, X4), panel32, 0, T_MONTHS, *win)
+    bufs = G.lay_out(*args)
+    ll_k, chk = G.launch_forward(bufs)
+    g = torch.ones(4, device=dev, dtype=f32)
+    grads = G.launch_backward(bufs, chk, g)
+    f_ms = cuda_ms(lambda: G.launch_forward(bufs), reps=20)
+    b_ms = cuda_ms(lambda: G.launch_backward(bufs, chk, g), reps=20)
+    f_plain, b_plain = plain_ms2["forward"], plain_ms2["adjoint"]
+    (fb, ff), (bb, bf), _ = grad_kernel_work(bufs, panel32, ll_k, chk, grads)
+    f_bound, f_by = bound(fb, ff)
+    b_bound, b_by = bound(bb, bf)
+    print(f"  K2f B=4: {f_ms:.4f} ms, plain {f_plain:.1f} ms, bound {f_bound:.6f} ms; "
+          f"K2b B=4: {b_ms:.4f} ms, plain {b_plain:.1f} ms, bound {b_bound:.6f} ms")
+
+    report["run"] = {
+        "wall_s": wall, "stages": stages, "fits": fits, "ll_start": ll_start,
+        "insample_ll": ll_in, "insample_ll_cpu_f64": ll_cpu, "record": record,
+        "k1_launches": k1_launches, "k1_launches_by_batch": by_batch,
+        "k1_launches_by_stage": {f"{k[0]} B={k[1]}": v for k, v in by_stage.items()},
+        "k1_device_s": k1_s,
+        "k1_share": k1_s / wall, "neldermead_host_share": (nm_s - nm_k1) / nm_s,
+        "batched_wall_s": wall_b, "batched_counts": counts_b,
+        "k1_shapes": k1_rows, "log_tail": log.getvalue()[-2000:]}
+    head = k1_rows[1]
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "K1 fused_kf in run()", **common,
+         "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_kf.cu",
+         "replaces": "yieldfactormodels_jl_tpu/ops/pallas_kf.py:102",
+         "launches": k1_launches, "max_abs_err": max(errs), "ms": head["ms"],
+         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+         "bound_by": head["bound_by"], "shapes": k1_rows},
+        {"name": "K2f fused_kf_grad in run(batched_windows)", **common,
+         "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_kf_grad.cu",
+         "replaces": "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:127",
+         "launches": counts_b["forward"], "max_abs_err": err_f, "ms": f_ms,
+         "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by},
+        {"name": "K2b fused_kf_grad in run(batched_windows)", **common,
+         "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_kf_grad.cu",
+         "replaces": "yieldfactormodels_jl_tpu/ops/pallas_kf_grad.py:181",
+         "launches": counts_b["backward"], "max_abs_err": err_b, "ms": b_ms,
+         "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by},
+    ]
+
+
+PHASE_GROUPS = ("kalman", "ssd", "sv", "run")
 
 
 def main(json_path=None, only=PHASE_GROUPS) -> int:
@@ -3297,23 +3780,31 @@ def main(json_path=None, only=PHASE_GROUPS) -> int:
     # ---- 1. build ------------------------------------------------------------
     begin_phase("[1] build")
     t0 = time.perf_counter()
-    _build.build_all()
-    for name in _build.KERNELS:
+    # every nvcc at once; the phases wait for the kernels the main path
+    # launches, and the clock builds, at the lowest CPU priority, finish
+    # beside [2]–[4] until their first use ([5], [10], [13])
+    main_libs = [name for name in _build.KERNELS if not name.endswith("_clocks")]
+    _build.start_all(later=[name for name in _build.KERNELS if name not in main_libs])
+    for name in main_libs:
         _build.load(name)
     report["build_s"] = time.perf_counter() - t0
-    print(f"  built {list(_build.KERNELS)} in {report['build_s']:.1f} s")
-    for name, log in _build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  {name}: {line.strip()}")
+    print(f"  built {main_libs} in {report['build_s']:.1f} s ("
+          + ", ".join(f"{_build.BUILD_SECONDS[n]:.1f}" for n in main_libs
+                      if n in _build.BUILD_SECONDS)
+          + " s each from its start); the clock builds go on")
+    print_build_logs(main_libs)
 
     kernels = []
-    if "kalman" in only:
-        kernels += kalman_phases(yfm, dev, report)
-    if "ssd" in only:
-        kernels.append(ssd_phases(yfm, dev, report))
-    if "sv" in only:
-        kernels.append(sv_phases(yfm, dev, report))
+    try:
+        kernels = run_phase_groups(yfm, dev, report, only)
+    finally:
+        _build.stop_pending()
+    clock_libs = [name for name in _build.KERNELS if name in _build.BUILD_SECONDS
+                  and name not in main_libs]
+    print(f"  the clock builds {clock_libs}, each from its start: "
+          + ", ".join(f"{_build.BUILD_SECONDS[n]:.1f} s" for n in clock_libs))
+    print_build_logs(clock_libs)
+    report["build_seconds"] = dict(_build.BUILD_SECONDS)
     report["kernels"] = kernels
     report["phase_start_s"] = dict(_PHASES)
     report["wall_s"] = time.perf_counter() - _T0
@@ -3329,6 +3820,36 @@ def main(json_path=None, only=PHASE_GROUPS) -> int:
     return 0
 
 
+def print_build_logs(names):
+    """The compiler's register, spill and entry lines of each library."""
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    for name in names:
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  {name}: {line.strip()}")
+
+
+def run_phase_groups(yfm, dev, report, only):
+    """Phases [2]–[15] of the groups in ``only``; returns the kernels line."""
+    from yieldfactormodels_jl_tpu_torch.ops import _build
+
+    kernels = []
+    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+        prefetch_sass(pool, [_build._lib_path(name) for group, name in
+                             (("kalman", "fused_kf"), ("ssd", "fused_ssd"), ("sv", "fused_pf"))
+                             if group in only])
+        if "kalman" in only:
+            kernels += kalman_phases(yfm, dev, report)
+        if "ssd" in only:
+            kernels.append(ssd_phases(yfm, dev, report))
+        if "sv" in only:
+            kernels.append(sv_phases(yfm, dev, report))
+        if "run" in only:
+            kernels += run_phases(yfm, dev, report)
+    return kernels
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -3337,8 +3858,8 @@ if __name__ == "__main__":
                     help="also write the full report (build, errors, timings) here")
     ap.add_argument("--only", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups to run after the build: "
-                         "kalman ([2]–[8]), ssd ([9]–[11]), sv ([12]–[14]); all by "
-                         "default")
+                         "kalman ([2]–[8]), ssd ([9]–[11]), sv ([12]–[14]), run "
+                         "([15]); all by default")
     args = ap.parse_args()
     only = tuple(args.only.split(","))
     if not set(only) <= set(PHASE_GROUPS):

@@ -743,6 +743,58 @@ def test_estimate_steps_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(ll_card, ll_cpu, rtol=1e-6)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["1C", "TVλ"])
+def test_loglik_graph_replays_k1_bit_for_bit(card, code):
+    """K1 and its set-up captured as a CUDA graph return the eager launch's
+    bits on every replay, and each replay counts one launch."""
+    rng = np.random.default_rng(3)
+    spec, _ = P.create_model(code, MATS)
+    p = torch.as_tensor(_draws(spec, 4, rng), device=card, dtype=torch.float32)
+    data = torch.as_tensor(4.0 + 0.1 * rng.standard_normal((len(MATS), 40)), device=card,
+                           dtype=torch.float32)
+    raw = P.untransform_params(spec, p)
+
+    def fn(X):
+        return fused_kf.batched_loglik(spec, P.transform_params(spec, X), data, 2, 38)
+
+    n = fused_kf.batched_loglik.launches
+    graph = fused_kf.LoglikGraph(fn, raw[:1])
+    assert fused_kf.batched_loglik.launches == n + 1      # the warm-up, not the capture
+    for row in raw:
+        assert torch.equal(graph(row[None]), fn(row[None]))
+    assert fused_kf.batched_loglik.launches == n + 1 + 2 * len(raw)
+
+
+@pytest.mark.cuda
+def test_kalman_estimate_steps_on_the_card(card, monkeypatch):
+    """``estimate_steps`` on "1C" in float64: on the card (its iterations
+    replayed from a CUDA graph) against the same call on the CPU at rtol
+    1e-6, and bit for bit against the card with every evaluation eager."""
+    from tests import oracle
+
+    spec, _ = P.create_model("1C", MATS, float_type="float64")
+    data = oracle.simulate_dns_panel(np.random.default_rng(0), np.asarray(MATS), T=40)
+    p = oracle.stable_1c_params(spec, np.float64)[:, None]
+    groups = P.get_param_groups(spec)
+    budgets = {"1": ("neldermead", dict(max_iters=25))}
+    launches = fused_kf.batched_loglik.launches
+    calls = fused_kf.batched_loglik_reference.calls
+    _, ll_card, best_card, conv_card = P.estimate_steps(spec, data, p, groups, max_group_iters=1,
+                                                        optimizers=budgets)
+    assert fused_kf.batched_loglik.launches > launches
+    assert fused_kf.batched_loglik_reference.calls == calls
+    _, ll_cpu, _, conv_cpu = P.estimate_steps(spec, data, p, groups, max_group_iters=1,
+                                              optimizers=budgets, device="cpu")
+    np.testing.assert_allclose(ll_card, ll_cpu, rtol=1e-6)
+    assert tuple(conv_card) == tuple(conv_cpu)
+    monkeypatch.setattr(fused_kf, "LoglikGraph", lambda fn, example: fn)
+    _, ll_eager, best_eager, _ = P.estimate_steps(spec, data, p, groups, max_group_iters=1,
+                                                  optimizers=budgets)
+    assert ll_eager == ll_card
+    np.testing.assert_array_equal(best_eager, best_card)
+
+
 def _afns5_batch(spec, D, rng):
     """(D, 48) AFNS5 draws around the JAX suite's stable point, decay
     drivers and δ jittered."""

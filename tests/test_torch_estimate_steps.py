@@ -154,11 +154,17 @@ def test_estimate_steps_refusals(yields_panel, monkeypatch):
     sd, _ = P.create_model("SD-NS", tuple(MATS), float_type="float64")
     p = oracle.stable_msed_params(sd)[:, None]
     groups = list(P.get_param_groups(sd))
-    for code, match in (("1C", "item 5"), ("NS", "item 6")):
-        spec, _ = P.create_model(code, tuple(MATS), float_type="float64")
-        with pytest.raises(NotImplementedError, match=match):
-            P.estimate_steps(spec, data, np.zeros((spec.n_params, 1)),
-                             P.get_param_groups(spec), device=CPU)
+    ns, _ = P.create_model("NS", tuple(MATS), float_type="float64")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        P.estimate_steps(ns, data, np.zeros((ns.n_params, 1)),
+                         P.get_param_groups(ns), device=CPU)
+    # the Kalman families run (tests/test_torch_kalman_steps.py holds them
+    # against JAX)
+    c1, _ = P.create_model("1C", tuple(MATS), float_type="float64")
+    _, ll, best, conv = P.estimate_steps(
+        c1, data, oracle.stable_1c_params(c1, np.float64)[:, None], P.get_param_groups(c1),
+        max_group_iters=1, optimizers={"1": ("neldermead", dict(max_iters=2))}, device=CPU)
+    assert np.isfinite(ll) and np.isfinite(best).all() and conv.iterations == 1
     with pytest.raises(NotImplementedError, match="item 11"):
         P.estimate_steps(sd, data, p, groups, checkpoint=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -9,6 +9,8 @@ Kalman families and "scan" for the score-driven ones so far, and
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -60,6 +62,16 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=1024)
+def device_constant(values: tuple, device=None, dtype=None) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, device, dtype).  A copy from pageable host memory waits for
+    every kernel queued before it, so index and maturity vectors copied on
+    each call would hold the host to the card's pace; these are made once.
+    Callers must not write to the result."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def as_tensor(x, device=None, dtype=None) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Estimation on the fused kernels: the multi-start MLE ``estimate``, its
 rolling-window form ``estimate_windows``, and the block-coordinate
-``estimate_steps`` of the score-driven families.
+``estimate_steps`` of the Kalman and score-driven families.
 
 Counterpart of the fused paths of ``yieldfactormodels_jl_tpu/estimation/
 optimize.py``.  ``estimate`` runs one batched L-BFGS loop over the (S, P)
@@ -10,20 +10,24 @@ value-and-gradient through the differentiable kernels (K2f/K2b for DNS/AFNS,
 K3f/K3b for TVλ, ``ops/fused_kf_grad``), then a trust-but-verify
 re-evaluation of the winner by the plain univariate engine.
 ``estimate_windows`` runs the same loop over a (windows × starts) batch
-whose rows carry their own windows.  ``estimate_steps`` evaluates the A×B
-initialization grid in one call of the score-driven value kernel (K4,
-``ops/fused_ssd``), then alternates parameter groups: Nelder–Mead blocks
-whose every candidate batch is one K4 call, and the closed-form (δ, Φ)
-solve on a fully observed window; the winner is re-evaluated by the plain
-score-driven scan.  On the CPU the kernels' plain versions run.
+whose rows carry their own windows.  ``estimate_steps`` alternates
+parameter groups in Nelder–Mead blocks whose every candidate batch is one
+value-kernel call: K1 for the Kalman families (whose groups are all one
+Nelder–Mead block), K4 (``ops/fused_ssd``) for the score-driven ones,
+which first evaluate the A×B initialization grid in one K4 call and solve
+the (δ, Φ) group in closed form on a fully observed window; the winner is
+re-evaluated by the family's plain engine.  On the CPU the kernels' plain
+versions run.
 
 What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
 item: the per-start ``"vmap"`` optimizer and ``"time_sharded"`` objective,
 the Newton polish (``second_order`` / ``YFM_NEWTON``), the amortized warm
 start (``warm_start`` / ``YFM_AMORT``), the escalation ladder
 (``YFM_ESCALATE``), checkpointed ``estimate_steps``, and the gradient-based
-groups of ``estimate_steps`` (L-BFGS where the closed form does not apply,
-Adam), which need second-order autograd through the inner score.
+groups of ``estimate_steps``: L-BFGS or Adam on a Kalman group (the
+per-start path), and for the score-driven families L-BFGS where the closed
+form does not apply and Adam, which need second-order autograd through the
+inner score.
 """
 
 from __future__ import annotations
@@ -69,9 +73,11 @@ _NOT_PORTED = {
     "second_order_ad": "ROADMAP.md Queue 1 item 6 (remaining: the "
                        "gradient-based MSED groups, which need second-order "
                        "autograd through the inner score)",
-    "kalman_steps": "ROADMAP.md Queue 1 item 5 (the backtest's "
-                    "estimate_steps for the Kalman families)",
     "static": "ROADMAP.md Queue 1 item 6 (the static families)",
+    "diagnose": "ROADMAP.md Queue 1 item 2 (taxonomy.diagnose and the "
+                "coded engines)",
+    "orchestrated": "ROADMAP.md Queue 1 item 11 (orchestration/supervisor.py, "
+                    "the leased-queue driver)",
 }
 
 
@@ -346,7 +352,7 @@ def estimate_windows(spec: ModelSpec, data, raw_starts, window_starts, window_en
 
 
 # ---------------------------------------------------------------------------
-# estimate_steps: block-coordinate descent of the score-driven families
+# estimate_steps: block-coordinate descent
 # ---------------------------------------------------------------------------
 
 #: group → (optimizer, options), the JAX package's default table
@@ -371,11 +377,16 @@ def _finite_objective(spec: ModelSpec, data, raw_params, start, end,
     return torch.where(torch.isfinite(v), v, torch.full_like(v, penalty))
 
 
-def _msed_batch_loss(spec: ModelSpec, cons, data, start, end):
-    """(B,) score-driven losses of constrained draws: K4 (its plain version
-    on the CPU) for the detached-β̄ score it implements; the reference's own
-    scan over the draw axis for a ``detach_inner_beta=False`` spec, as the
-    JAX package sends such specs to its vmapped scan."""
+def _batch_loss(spec: ModelSpec, cons, data, start, end):
+    """(B,) losses of constrained draws in the spec's float type: for a
+    Kalman spec the loglik from K1 (``ops/fused_kf``); for a score-driven
+    spec K4 for the detached-β̄ score it implements, and the reference's
+    own scan over the draw axis for a ``detach_inner_beta=False`` spec, as
+    the JAX package sends such specs to its vmapped scan.  On the CPU the
+    kernels' plain versions run."""
+    if spec.is_kalman:
+        return fused_kf._batched_loglik(spec, cons, data, start, end,
+                                        dtype=spec.dtype)
     if spec.detach_inner_beta:
         return fused_ssd.batched_loss(spec, cons, data, start, end)
     return score_driven.get_loss(spec, cons, data, start, end)
@@ -405,7 +416,7 @@ def try_initializations(spec: ModelSpec, best_params, data, max_tries: int = 0,
     data = config.as_tensor(data, device, spec.dtype)
     if end is None:
         end = data.shape[1]
-    losses = _msed_batch_loss(
+    losses = _batch_loss(
         spec, torch.as_tensor(cands, dtype=spec.dtype, device=data.device),
         data, start, end).double().cpu().numpy()
     best = int(np.nanargmax(np.where(np.isfinite(losses), losses, -np.inf)))
@@ -414,20 +425,31 @@ def try_initializations(spec: ModelSpec, best_params, data, max_tries: int = 0,
 
 def _neldermead_group(spec: ModelSpec, X, inds, opts, data, start, end):
     """All starts' Nelder–Mead over the group ``inds`` in lockstep; every
-    candidate batch is one K4 call (its plain version on the CPU; the plain
-    scan for a ``detach_inner_beta=False`` spec), the
-    objective −loss with non-finite values clamped to the penalty.
+    candidate batch is one :func:`_batch_loss` call (K1 or K4), the
+    objective −loss with non-finite values clamped to the penalty.  On the
+    card a Kalman spec's one-candidate batches (two an iteration) replay a
+    CUDA graph of the whole evaluation (``fused_kf.LoglikGraph``).
     Returns (X', f (S,))."""
     S, Pn = X.shape
     idx = torch.as_tensor(inds, device=X.device)
 
-    def batch_fun(Xs):  # (S, K, k) -> (S, K)
+    def values(Xs):  # (S, K, k) -> (S, K)
         K = Xs.shape[1]
         F = X[:, None, :].expand(S, K, Pn).clone()
         F[:, :, idx] = Xs
-        v = -_msed_batch_loss(spec, transform_params(spec, F.reshape(S * K, Pn)),
-                              data, start, end)
+        v = -_batch_loss(spec, transform_params(spec, F.reshape(S * K, Pn)),
+                         data, start, end)
         return torch.where(torch.isfinite(v), v, torch.full_like(v, PENALTY)).reshape(S, K)
+
+    graph = None
+
+    def batch_fun(Xs):
+        nonlocal graph
+        if Xs.shape[1] > 1 or not (spec.is_kalman and Xs.is_cuda):
+            return values(Xs)
+        if graph is None:
+            graph = fused_kf.LoglikGraph(values, Xs)
+        return graph(Xs)
 
     x, f, _ = nelder_mead_batched(batch_fun, X[:, idx], max_iters=opts["max_iters"],
                                   f_tol=opts.get("f_tol", 1e-8))
@@ -524,26 +546,26 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
                    tol: float = 1e-8, optimizers=None, start=0, end=None,
                    max_tries: int = 0, printing: bool = False, checkpoint=None,
                    second_order=None, warm_start=None, device=None):
-    """Block-coordinate estimation over parameter groups, for the
-    score-driven families.
+    """Block-coordinate estimation over parameter groups, for the Kalman
+    and score-driven families.
 
-    The control flow of the JAX package: the initialization grid replaces
-    the starts by its best candidate, which is untransformed, sanitized and
+    The control flow of the JAX package: for a score-driven spec the
+    initialization grid replaces the starts by its best candidate (a Kalman
+    spec keeps its starts); the first start is untransformed, sanitized and
     rescued (×0.95, up to 10 times) until its loss is finite; then each group
     iteration optimizes every group embedded in the full vector — the
     closed-form (δ, Φ) solve where it applies, Nelder–Mead with every
-    candidate batch one K4 call otherwise — all starts in lockstep, until the
-    loss moves by less than ``tol``.  An objective that is non-finite
-    everywhere on the first group optimization raises; later, the start's
-    group loop stops.  The winner is re-evaluated by the plain scan
+    candidate batch one value-kernel call otherwise (K1 for a Kalman spec,
+    K4 for a score-driven one) — all starts in lockstep, until the loss
+    moves by less than ``tol``.  An objective that is non-finite everywhere
+    on the first group optimization raises; later, the start's group loop
+    stops.  The winner is re-evaluated by the family's plain engine
     (trust-but-verify; a disagreement raises).  ``all_params`` (P, S)
     constrained; numpy ``data`` goes to ``device`` (``None`` means CUDA).
 
     Returns (init_params, ll, best_params, Convergence(converged,
     iterations)) for the winning start, as numpy arrays."""
-    if spec.is_kalman:
-        raise _not_ported("estimate_steps for the Kalman families", "kalman_steps")
-    if not spec.is_msed:
+    if not (spec.is_kalman or spec.is_msed):
         raise _not_ported(f"estimate_steps for family {spec.family!r}", "static")
     if checkpoint is not None:
         raise _not_ported("checkpointed estimate_steps", "checkpoint")
@@ -563,7 +585,8 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
     for g in group_ids:
         kind, _ = _optimizer_for_group(g, table)
         if g != "-1" and inds_by_group[g] and not closed_ok[g] and kind != "neldermead":
-            raise _not_ported(f"the {kind!r} optimizer of group {g!r}", "second_order_ad")
+            raise _not_ported(f"the {kind!r} optimizer of group {g!r}",
+                              "vmap" if spec.is_kalman else "second_order_ad")
 
     with torch.no_grad():
         all_params = np.asarray(all_params, dtype=np.float64)
@@ -576,9 +599,10 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
 
         def loss_at(p):
             cons = transform_params(spec, torch.as_tensor(p, dtype=spec.dtype, device=dev))
-            return float(api.get_loss(spec, cons, data, start, end))
+            return float(_batch_loss(spec, cons[None], data, start, end)[0])
 
-        # validity rescue of the first start
+        # validity rescue of the first start: only whether its loss is
+        # finite matters, so the value kernel evaluates it
         ll0 = loss_at(raw[:, 0])
         for _ in range(10):
             if np.isfinite(ll0):
@@ -621,8 +645,8 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
                 aborted = aborted | (obj_broken & ~done)
             active = ~done
             iters_done[active] = it + 1
-            lls = _msed_batch_loss(spec, transform_params(spec, X), data, start,
-                                   end).double().cpu().numpy()
+            lls = _batch_loss(spec, transform_params(spec, X), data, start,
+                              end).double().cpu().numpy()
             hit_tol = np.abs(lls - prev_ll) < tol
             converged |= active & hit_tol & ~aborted
             done = done | (active & (hit_tol | aborted))

@@ -97,13 +97,13 @@ def get_loss(spec: ModelSpec, params, data, start=0, end=None, K: int = 1,
 
 def get_loss_array(spec: ModelSpec, params, data, start=0, end=None, K: int = 1,
                    device=None):
-    """Per-step −MSE contributions (..., T−1) of a score-driven spec."""
-    if not spec.is_msed:
-        raise NotImplementedError(
-            f"get_loss_array covers the score-driven families so far, not "
-            f"{spec.family!r}; see {_FAMILIES_ITEM}")
+    """Per-step one-step-ahead −MSE contributions (..., T−1) of the family's
+    filter (``kalman.get_loss_array``, ``score_driven.get_loss_array``)."""
+    _require_filtered(spec)
     params, data = _inputs(spec, params, data, device)
-    return score_driven.get_loss_array(spec, params, data, start, end, K)
+    if spec.is_msed:
+        return score_driven.get_loss_array(spec, params, data, start, end, K)
+    return kalman.get_loss_array(spec, params, data, start, end, K)
 
 
 def predict(spec: ModelSpec, params, data, device=None):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .afns import afns_loadings, yield_adjustment
@@ -98,22 +99,26 @@ def measurement_setup(spec: ModelSpec, kp: KalmanParams, dtype):
     return None, None
 
 
+def _bound(x, device):
+    """A window bound: a scalar stays a Python int (no host→device copy),
+    per-draw bounds get a trailing axis against time."""
+    if isinstance(x, torch.Tensor) or np.ndim(x) > 0:
+        return torch.as_tensor(x, device=device)[..., None]
+    return int(x)
+
+
 def loglik_contrib_mask(start, end, T, device=None):
     """Contributing steps start+1 .. end−2 (0-based): the recursion runs over
     t = 1..T−1 and skips the first innovation.  ``start``/``end`` may be ints
     or (B,) tensors (per-draw windows, giving a (B, T) mask)."""
     t_idx = torch.arange(T, device=device)
-    start = torch.as_tensor(start, device=device)[..., None]
-    end = torch.as_tensor(end, device=device)[..., None]
-    return (t_idx >= start + 1) & (t_idx <= end - 2)
+    return (t_idx >= _bound(start, device) + 1) & (t_idx <= _bound(end, device) - 2)
 
 
 def observed_mask(start, end, T, device=None):
     """In-window steps start <= t < end, shaped like ``loglik_contrib_mask``."""
     t_idx = torch.arange(T, device=device)
-    start = torch.as_tensor(start, device=device)[..., None]
-    end = torch.as_tensor(end, device=device)[..., None]
-    return (t_idx >= start) & (t_idx < end)
+    return (t_idx >= _bound(start, device)) & (t_idx < _bound(end, device))
 
 
 def _mv(A, x):
@@ -165,18 +170,20 @@ def _step(spec: ModelSpec, kp: KalmanParams, Z_const, d_const,
     ll = torch.where(obs & cho_ok, ll,
                      torch.where(obs, torch.full_like(ll, -math.inf),
                                  torch.zeros_like(ll)))
-    outs = {"y_pred": y_pred, "ll": ll, "beta_after": beta_next,
+    outs = {"y_pred": y_pred, "v": v, "ll": ll, "beta_after": beta_next,
             "Z2": Z[..., 1], "Z3": Z[..., 2]}
     return KalmanState(beta_next, P_next), outs
 
 
-def _scan_filter(spec: ModelSpec, params, data, start, end):
-    """Run the filter over all T columns of ``data`` (N, T); columns outside
-    [start, end) are treated as missing.  Per-step outputs are stacked on a
-    trailing time axis."""
+def _scan_filter(spec: ModelSpec, params, data, start, end,
+                 state0: KalmanState | None = None):
+    """Run the filter over all T columns of ``data`` (N, T) from ``state0``
+    (the unconditional start by default); columns outside [start, end) are
+    treated as missing.  Per-step outputs are stacked on a trailing time
+    axis."""
     kp = unpack_kalman(spec, params)
     Z_const, d_const = measurement_setup(spec, kp, params.dtype)
-    state = init_state(spec, kp)
+    state = init_state(spec, kp) if state0 is None else state0
     T = data.shape[1]
     observed = observed_mask(start, end, T, data.device)
     outs = []
@@ -200,6 +207,24 @@ def get_loss(spec: ModelSpec, params, data, start=0, end=None):
     total = torch.where(contrib, ll, torch.zeros_like(ll)).sum(-1)
     return torch.where(torch.isfinite(total), total,
                        torch.full_like(total, -math.inf))
+
+
+def get_loss_array(spec: ModelSpec, params, data, start=0, end=None, K: int = 1):
+    """Per-step one-step-ahead MSE diagnostics, (..., T−1): −‖v_t‖²/N over
+    the contributing steps, 0 elsewhere.  K > 1 replays the filter from the
+    previous pass's end state (the reference's set_params! touches neither
+    β nor P), accumulating before the /K."""
+    T = data.shape[1]
+    if end is None:
+        end = T
+    contrib = loglik_contrib_mask(start, end, T, data.device)
+    acc = torch.zeros(params.shape[:-1] + (T,), dtype=data.dtype, device=data.device)
+    state = None
+    for _ in range(K):
+        _, state, outs = _scan_filter(spec, params, data, start, end, state)
+        per_t = -(outs["v"] * outs["v"]).sum(-2)
+        acc = acc + torch.where(contrib, per_t, torch.zeros_like(per_t))
+    return (acc / spec.N / K)[..., : T - 1]
 
 
 def predict(spec: ModelSpec, params, data):

@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import config
 from ..utils.transformations import apply_transforms, apply_untransforms
 from .specs import ModelSpec
 
@@ -24,8 +25,8 @@ from .specs import ModelSpec
 
 def expand_params(unique_params, duplicator):
     """unique (..., u) -> full (..., L) via the 0-based duplicator index."""
-    idx = torch.as_tensor(duplicator, dtype=torch.int64,
-                          device=unique_params.device)
+    idx = config.device_constant(tuple(int(i) for i in duplicator),
+                                 unique_params.device, torch.int64)
     return unique_params[..., idx]
 
 
@@ -78,9 +79,10 @@ def unpack_kalman(spec: ModelSpec, params) -> KalmanParams:
     Ms = spec.state_dim
     gamma = spec.slice(params, "gamma") if "gamma" in spec.layout else None
     obs_var = spec.slice(params, "obs_var")[..., 0]
-    rows, cols = spec.chol_indices
+    rows, cols = (config.device_constant(tuple(int(i) for i in ix), params.device,
+                                         torch.int64) for ix in spec.chol_indices)
     C = params.new_zeros(params.shape[:-1] + (Ms, Ms))
-    C[..., torch.as_tensor(rows), torch.as_tensor(cols)] = spec.slice(params, "chol")
+    C[..., rows, cols] = spec.slice(params, "chol")
     Omega_state = C.transpose(-1, -2) @ C
     delta = spec.slice(params, "delta")
     Phi = spec.slice(params, "phi").reshape(params.shape[:-1] + (Ms, Ms))
@@ -155,13 +157,18 @@ def get_new_initial_params(spec: ModelSpec, params, trial: int):
 
 
 def initialize_with_static_params(spec: ModelSpec, params, static_params):
-    """Warm start of a score-driven spec from a static model's fit: the
-    [ω; δ; Φ] tail is overwritten by ``static_params``."""
-    if not spec.is_msed:
-        raise NotImplementedError(
-            f"warm starts for family {spec.family!r} are not ported to "
-            f"PyTorch yet; see {_INIT_ITEM}")
+    """Warm start from a simpler model's fitted parameters: a score-driven
+    spec takes the [ω; δ; Φ] tail, TVλ the index map from the "1C" fit,
+    every other family keeps ``params``."""
     params = np.asarray(params, dtype=np.float64).copy()
     sp = np.asarray(static_params, dtype=np.float64).reshape(-1)
-    params[len(params) - len(sp):] = sp
+    if spec.is_msed:
+        params[len(params) - len(sp):] = sp
+    elif spec.family == "kalman_tvl":
+        params[0:1] = sp[1:2]
+        params[1:7] = sp[-18:-12]
+        params[11:14] = sp[-12:-9]
+        params[15:18] = sp[-9:-6]
+        params[19:22] = sp[-6:-3]
+        params[23:26] = sp[-3:]
     return params

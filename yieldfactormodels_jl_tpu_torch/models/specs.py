@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import config
 from ..utils import transformations as tr
 
 KALMAN_FAMILIES = ("kalman_dns", "kalman_tvl", "kalman_afns")
@@ -97,8 +98,9 @@ class ModelSpec:
         return (max(self.duplicator) + 1) if self.duplicator else self.L
 
     def maturities_array(self, device=None, dtype=None) -> torch.Tensor:
-        return torch.tensor(self.maturities, dtype=dtype or self.dtype,
-                            device=device)
+        """The maturities on ``device`` (read only: made once per device and
+        type)."""
+        return config.device_constant(self.maturities, device, dtype or self.dtype)
 
     @property
     def is_kalman(self) -> bool:

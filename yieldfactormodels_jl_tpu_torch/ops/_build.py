@@ -17,7 +17,10 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
+import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -113,6 +116,11 @@ _LIBS: dict = {}
 #: compiler output of each library built in this process (ptxas register and
 #: spill report included), for the build phase of chip_smoke.py to print
 BUILD_LOGS: dict = {}
+#: seconds from each library's nvcc start to the moment it was waited for
+#: and found done (at most a wait's lateness above its compile time)
+BUILD_SECONDS: dict = {}
+#: builds started by :func:`start_all` and not yet waited for
+_PENDING: dict = {}
 
 
 def _nvcc() -> str:
@@ -139,45 +147,71 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def _start_build(name: str):
-    """Start nvcc for one source into a temporary file; returns (proc, tmp,
-    final) or None when the library for this source hash already exists."""
+def _start_build(name: str, niceness: int = 0):
+    """Start nvcc for one source into a temporary file, its output into a
+    temporary log, ``niceness`` above this process's; returns (proc, tmp,
+    final, log, start time) or None when the library for this source hash
+    already exists."""
     final = _lib_path(name)
     if final.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = final.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / KERNELS[name][0])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, final
+    log = tempfile.TemporaryFile(mode="w+")
+    # a process group of its own, so that stop_pending reaches nvcc's children
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            preexec_fn=(lambda: os.nice(niceness)) if niceness else None)
+    return proc, tmp, final, log, time.perf_counter()
 
 
 def _finish_build(name: str, started) -> None:
-    proc, tmp, final = started
-    log, _ = proc.communicate()
-    BUILD_LOGS[name] = log
+    proc, tmp, final, log, t0 = started
+    proc.wait()
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    log.seek(0)
+    BUILD_LOGS[name] = log.read()
+    log.close()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {KERNELS[name][0]} "
-                           f"(exit {proc.returncode}):\n{log}")
+                           f"(exit {proc.returncode}):\n{BUILD_LOGS[name]}")
     os.replace(tmp, final)  # atomic: a concurrent loader never sees half a file
 
 
-def build_all() -> None:
-    """Compile every kernel source that has no library yet, all nvcc
-    processes started together, and wait for them."""
-    started = {name: _start_build(name) for name in KERNELS}
-    for name, st in started.items():
-        if st is not None:
-            _finish_build(name, st)
+def start_all(later=()) -> None:
+    """Start nvcc for every kernel source that has no library yet, all
+    together, without waiting: :func:`load` waits for each library when it
+    is first needed.  The libraries named in ``later`` build at the lowest
+    CPU priority, on the cores the others leave."""
+    for name in KERNELS:
+        if name not in _PENDING and name not in _LIBS:
+            started = _start_build(name, 19 if name in later else 0)
+            if started is not None:
+                _PENDING[name] = started
+
+
+def stop_pending() -> None:
+    """Kill the builds :func:`start_all` started that nothing waited for,
+    nvcc and the compilers it started."""
+    for name in list(_PENDING):
+        proc, tmp, _, log, _ = _PENDING.pop(name)
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:  # the group is gone: nvcc ended and was reaped
+            pass
+        proc.wait()
+        log.close()
+        tmp.unlink(missing_ok=True)
 
 
 def load(name: str):
-    """The ctypes library of one kernel source, built first if needed."""
+    """The ctypes library of one kernel source, built first if needed (or
+    waited for, if :func:`start_all` started its build)."""
     lib = _LIBS.get(name)
     if lib is None:
-        started = _start_build(name)
+        started = _PENDING.pop(name, None) or _start_build(name)
         if started is not None:
             _finish_build(name, started)
         lib = ctypes.CDLL(str(_lib_path(name)))

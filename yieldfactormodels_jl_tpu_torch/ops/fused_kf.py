@@ -195,3 +195,35 @@ def batched_loglik(spec: ModelSpec, params_batch, data, start=0, end=None,
 
 #: kernel launches since the count was last set to 0
 batched_loglik.launches = 0
+
+
+class LoglikGraph:
+    """``fn`` — a function of one tensor that launches K1 exactly once, with
+    its set-up tensor ops around it — captured once as a CUDA graph on
+    ``example``'s shape and replayed per call.  Eagerly, K1's set-up
+    (transforms, unpacking, the unconditional start, the loadings, the
+    layout) enqueues some 60 small kernels, whose host time exceeds K1's
+    0.7 ms on the card for the one-draw batches of a lockstep Nelder–Mead;
+    a replay enqueues them at once.  It runs the same kernels on the same
+    inputs as an eager call, so it returns the same bits.  Tensors that
+    ``fn`` reads besides its argument must stay alive and unchanged while
+    the graph is used.  CUDA tensors only."""
+
+    def __init__(self, fn, example):
+        dev = example.device
+        self.arg = example.detach().clone()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):  # the libraries' lazy set-up, outside the capture
+            fn(self.arg)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.out = fn(self.arg)
+        batched_loglik.launches -= 1  # the capture recorded K1; it did not run it
+
+    def __call__(self, x):
+        self.arg.copy_(x)
+        self.graph.replay()
+        batched_loglik.launches += 1
+        return self.out.clone()

@@ -1,1 +1,2 @@
-"""Utilities of the PyTorch port (parameter transforms)."""
+"""Utilities of the PyTorch port: parameter transforms, CSV data loading
+and stage timing."""

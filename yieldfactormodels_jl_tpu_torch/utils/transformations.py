@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import config
+
 # Transform codes (stored per-parameter in ModelSpec.transform_codes).
 IDENTITY = 0
 R_TO_POS = 1  # exp       — variances, EWMA step sizes A
@@ -56,7 +58,7 @@ def _masked(x, mask, fn, neutral):
 
 
 def _codes_on(params, codes):
-    return torch.as_tensor(codes, device=params.device)
+    return config.device_constant(tuple(int(c) for c in codes), params.device)
 
 
 def apply_transforms(params, codes):
