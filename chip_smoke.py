@@ -2,19 +2,22 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, run its main
 path, hold every kernel against its plain PyTorch version, and time it.
 
-    python3 chip_smoke.py [--json PATH] [--only kalman,ssd,sv,run]
+    python3 chip_smoke.py [--json PATH] [--only kalman,ssd,sv,run,cascade]
                                           # from the repository root; one CUDA card
 
 ``--only`` runs the build and the named phase groups alone (kalman: [2]–[8],
-ssd: [9]–[11], sv: [12]–[14], run: [15]); the kernels line then holds their
-kernels.
+ssd: [9]–[11], sv: [12]–[14], run: [15], cascade: [16]); the kernels line
+then holds their kernels.
 
 Phases (any failure raises and the script exits non-zero):
 
 1. build   — compile every kernel source with nvcc (sm_90a), all at once;
-   wait for the main path's libraries, while the clock builds (at the
-   lowest CPU priority) finish beside [2]–[4] (each is waited for at its
-   first use).
+   wait for the library the first phase launches (K1's for [2]); every
+   other library is waited for at its first use, so [2]–[4], which launch
+   K1 alone, run beside the other builds, and the clock builds (at the
+   lowest CPU priority) finish beside [2]–[5].  Before the last lines the
+   script waits for every main library, so a build that fails fails the
+   run whichever phases ran.
 2. full width — AFNS5, N=20 maturities, T=360, B=1024 and B=16384 draws
    (this file's numpy copy of bench.py's panel and draws, seeded): raw draws
    → untransform_params → transform_params → batched_loglik (the kernel),
@@ -237,6 +240,30 @@ Phases (any failure raises and the script exits non-zero):
     atol 1e-2; the gradient by bench.py's cosine/norm criterion), each
     timed beside its plain version (the same call, by CUDA events) and its
     bound.
+16. the reference's warm-start cascade — in one temporary working
+    directory, on [15]'s panel (N=20, T=360, float32, expanding windows):
+    ``run("1", 357, 12, True, "NS", "float32")`` at the reference's budget
+    (10 group iterations; group "1", λ, by a 500-iteration Nelder–Mead on
+    the batched static loss, group "2" by the closed form), then
+    ``run("1", 360, 12, True, "SD-NS", "float32")`` from NS's results at 1
+    group iteration ([11]'s depth) and 1 origin (360), the depth the
+    script's time limit allows (``CASCADE_RUNS``), each with the launch
+    counts set to 0 just before it.  Checks: every static loss
+    evaluation of the NS run on CUDA tensors, none on the CPU, and none in
+    the SD-NS run; K4 0 times in the NS run, ≥ 1 in the SD-NS run and its
+    plain version 0; the in-sample fit and one fit an origin of each code,
+    each ending at or above its start (after the grid) in the run's own
+    evaluation; NS's in-sample ll
+    within rtol 1e-4 of the plain float64 loss on the CPU; SD-NS's first
+    start's [ω; δ; Φ] tail equal to NS's out-params (in-sample) and to
+    NS's merged-DB row for the task (each origin), bit for bit; both runs'
+    artifacts present and finite; the NS and SD-NS parameters' hashes,
+    SD-NS's forecast CSV's hash and K4's launches equal to
+    ``CASCADE_FITS``.  Prints each run's wall by stage, K4's launches by
+    batch size, its device time (CUDA events around each launch) and share
+    of the SD-NS wall; then K4 on the in-sample grid and the fitted point
+    (B=32) against its plain versions ([9]'s criterion), and at B=1 (the
+    Nelder–Mead batch) timed beside its plain version and its bound.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON object {"kernels": [...]} with each kernel's launches on the
@@ -3146,6 +3173,57 @@ def kalman_phases(yfm, dev, report):
     return kernels
 
 
+#: K4's (rtol, relative nudge) in each type: the kernel against the plain
+#: version, and the nudges that decide which draws a type determines
+K4_TOLS = {torch.float64: (1e-6, 1e-15), torch.float32: (2e-2, 1e-7)}
+
+
+def hold_k4_counted(k4_counts, what, s64, p64, data64, start=0, end=None, expect_all_inf=False):
+    """K4 in both types against the plain versions on the draws each type
+    determines (float32 also against the plain float64), the counts kept in
+    ``k4_counts``; returns the float32-vs-plain-float64 max abs error."""
+    from yieldfactormodels_jl_tpu_torch.ops import fused_ssd
+
+    f32, f64 = torch.float32, torch.float64
+    s32 = dataclasses.replace(s64, dtype_name="float32")
+    dets, refs, infs = {}, {}, {}
+    for dtype, (rtol, eps) in K4_TOLS.items():
+        dets[dtype], refs[dtype], infs[dtype] = ssd_determined(
+            s64, p64, data64, dtype, rtol, eps, start, end)
+    got64 = fused_ssd.batched_loss(s64, p64, data64, start, end)
+    got32 = fused_ssd.batched_loss(s32, p64.float(), data64.float(), start, end)
+    B = p64.shape[0]
+    # −inf where the plain version is −inf under every nudge, finite where
+    # it determines a finite value; a draw on the edge of overflow (a
+    # wild grid point) may go either way in another summation order
+    for name, got, dtype in (("f64", got64, f64), ("f32", got32, f32)):
+        bad = (infs[dtype] & (got != -math.inf)) | (dets[dtype] & ~torch.isfinite(got))
+        check(not bool(bad.any()), f"{what}: {name} kernel finite pattern differs on "
+              f"draws {bad.nonzero().flatten().tolist()[:8]}: kernel "
+              f"{got[bad][:4].tolist()}, plain {refs[dtype][bad][:4].tolist()}")
+    if expect_all_inf:
+        check(bool(infs[f64].all()) and bool((got32 == -math.inf).all())
+              and bool((got64 == -math.inf).all()), f"{what}: expected −inf for every draw")
+        print(f"  {what}: every draw −inf in both types and the plain version")
+        return 0.0
+    # float32 is held against float64 where its plain version also
+    # agrees with the plain float64 one to a quarter of the tolerance: it
+    # can be stable under nudges and still biased
+    agree = (refs[f32].double() - refs[f64]).abs() <= K4_TOLS[f32][0] / 4 * refs[f64].abs()
+    d64, d32 = dets[f64], dets[f32] & dets[f64] & agree
+    n64, n32 = int(d64.sum()), int(d32.sum())
+    n_inf = int((infs[f64] & infs[f32]).sum())
+    k4_counts[what] = {"B": B, "minus_inf": n_inf, "f64_determined": n64,
+                       "f32_determined": n32}
+    print(f"  {what}: −inf under every nudge {n_inf} of {B}; of the rest f64 determines "
+          f"{n64}, f32 {n32}")
+    check(min(n64, n32) + n_inf >= 0.85 * B, f"{what}: too few determined draws")
+    close(got64[d64], refs[f64][d64], 1e-6, 0.0, f"{what}: f64 kernel vs plain f64")
+    err = close(got32[d32], refs[f64][d32], 2e-2, 0.0, f"{what}: f32 kernel vs plain f64")
+    close(got32[d32], refs[f32][d32], 2e-2, 0.0, f"{what}: f32 kernel vs plain f32")
+    return err
+
+
 def ssd_phases(yfm, dev, report):
     """Phases 9–11: K4 against its plain version at full width and on the
     edge cases, its timing and stage clocks, and ``estimate_steps`` on
@@ -3164,50 +3242,10 @@ def ssd_phases(yfm, dev, report):
     bpanel = bench_dns_panel()
     bpanel64 = torch.as_tensor(bpanel, device=dev, dtype=f64)
     bpanel32 = bpanel64.float()
-    K4_TOLS = {f64: (1e-6, 1e-15), f32: (2e-2, 1e-7)}
     k4_errs, k4_counts = [], {}
 
-    def hold_k4(what, s64, p64, data64, start=0, end=None, expect_all_inf=False):
-        """K4 in both types against the plain versions on the draws each type
-        determines (float32 also against the plain float64); returns the
-        float32-vs-plain-float64 max abs error."""
-        s32 = dataclasses.replace(s64, dtype_name="float32")
-        dets, refs, infs = {}, {}, {}
-        for dtype, (rtol, eps) in K4_TOLS.items():
-            dets[dtype], refs[dtype], infs[dtype] = ssd_determined(
-                s64, p64, data64, dtype, rtol, eps, start, end)
-        got64 = fused_ssd.batched_loss(s64, p64, data64, start, end)
-        got32 = fused_ssd.batched_loss(s32, p64.float(), data64.float(), start, end)
-        B = p64.shape[0]
-        # −inf where the plain version is −inf under every nudge, finite where
-        # it determines a finite value; a draw on the edge of overflow (a
-        # wild grid point) may go either way in another summation order
-        for name, got, dtype in (("f64", got64, f64), ("f32", got32, f32)):
-            bad = (infs[dtype] & (got != -math.inf)) | (dets[dtype] & ~torch.isfinite(got))
-            check(not bool(bad.any()), f"{what}: {name} kernel finite pattern differs on "
-                  f"draws {bad.nonzero().flatten().tolist()[:8]}: kernel "
-                  f"{got[bad][:4].tolist()}, plain {refs[dtype][bad][:4].tolist()}")
-        if expect_all_inf:
-            check(bool(infs[f64].all()) and bool((got32 == -math.inf).all())
-                  and bool((got64 == -math.inf).all()), f"{what}: expected −inf for every draw")
-            print(f"  {what}: every draw −inf in both types and the plain version")
-            return 0.0
-        # float32 is held against float64 where its plain version also
-        # agrees with the plain float64 one to a quarter of the tolerance: it
-        # can be stable under nudges and still biased
-        agree = (refs[f32].double() - refs[f64]).abs() <= K4_TOLS[f32][0] / 4 * refs[f64].abs()
-        d64, d32 = dets[f64], dets[f32] & dets[f64] & agree
-        n64, n32 = int(d64.sum()), int(d32.sum())
-        n_inf = int((infs[f64] & infs[f32]).sum())
-        k4_counts[what] = {"B": B, "minus_inf": n_inf, "f64_determined": n64,
-                           "f32_determined": n32}
-        print(f"  {what}: −inf under every nudge {n_inf} of {B}; of the rest f64 determines "
-              f"{n64}, f32 {n32}")
-        check(min(n64, n32) + n_inf >= 0.85 * B, f"{what}: too few determined draws")
-        close(got64[d64], refs[f64][d64], 1e-6, 0.0, f"{what}: f64 kernel vs plain f64")
-        err = close(got32[d32], refs[f64][d32], 2e-2, 0.0, f"{what}: f32 kernel vs plain f64")
-        close(got32[d32], refs[f32][d32], 2e-2, 0.0, f"{what}: f32 kernel vs plain f32")
-        return err
+    def hold_k4(*a, **k):
+        return hold_k4_counted(k4_counts, *a, **k)
 
     ssd_specs = {}
     for code in ("1SSD-NNS", "SSD-NS"):
@@ -3493,16 +3531,18 @@ def instrumented_run(yfm, timer, fits, k1_runs):
         fused_kf.LoglikGraph.__call__ = replay
 
 
-def check_run_artifacts(res_dir, what, n_origins=4):
-    """The files a sequential or batched run leaves: in-sample CSVs, the
-    merged DB with one row an origin, the legacy window CSVs; all finite.
-    Returns the forecast CSV's path."""
+def check_run_artifacts(res_dir, what, n_origins=4, code="1C", t_in=None):
+    """The files a sequential or batched run of ``code`` with in-sample end
+    ``t_in`` (``RUN_T_IN``) leaves: in-sample CSVs, the merged DB with one
+    row an origin, the legacy window CSVs; all finite.  Returns the forecast
+    CSV's path."""
+    t_in = RUN_T_IN if t_in is None else t_in
     import sqlite3
 
     for suffix in ("factors_filtered_insample", "fit_filtered_insample",
                    "factor_loadings_1_filtered_insample", "factors_filtered_outofsample",
                    "fit_filtered_outofsample", "loss", "out_params"):
-        arr = np.loadtxt(os.path.join(res_dir, f"1C__thread_id__1__{suffix}.csv"),
+        arr = np.loadtxt(os.path.join(res_dir, f"{code}__thread_id__1__{suffix}.csv"),
                          delimiter=",")
         check(np.isfinite(arr).all(), f"{what}: {suffix} is not finite")
     merged = os.path.join(res_dir, "db", "forecasts_expanding_merged.sqlite3")
@@ -3511,12 +3551,13 @@ def check_run_artifacts(res_dir, what, n_origins=4):
         rows = conn.execute("SELECT task_id, loss FROM forecasts ORDER BY task_id").fetchall()
     finally:
         conn.close()
-    check([r[0] for r in rows] == list(range(RUN_T_IN, RUN_T_IN + n_origins)),
+    check([r[0] for r in rows] == list(range(t_in, t_in + n_origins)),
           f"{what}: merged DB rows {rows}")
     check(all(r[1] is not None and math.isfinite(r[1]) for r in rows),
           f"{what}: a window's ll is not finite: {rows}")
     for kind in ("forecasts", "fitted_params", "factors", "states", "fl1", "fl2"):
-        arr = np.loadtxt(os.path.join(res_dir, f"1C__thread_id__1__expanding_window_{kind}.csv"),
+        arr = np.loadtxt(os.path.join(res_dir,
+                                      f"{code}__thread_id__1__expanding_window_{kind}.csv"),
                          delimiter=",")
         check(np.isfinite(arr).all(), f"{what}: expanding_window_{kind} is not finite")
         if kind == "forecasts":
@@ -3524,7 +3565,7 @@ def check_run_artifacts(res_dir, what, n_origins=4):
                   f"{what}: forecast CSV shape {arr.shape}")
     print(f"  {what}: in-sample CSVs, merged DB ({len(rows)} rows) and window CSVs "
           f"present and finite; forecast CSV {n_origins * RUN_H} × {2 + N_MATURITIES}")
-    return os.path.join(res_dir, "1C__thread_id__1__expanding_window_forecasts.csv")
+    return os.path.join(res_dir, f"{code}__thread_id__1__expanding_window_forecasts.csv")
 
 
 def timed_call(fn):
@@ -3754,7 +3795,244 @@ def run_phases(yfm, dev, report):
     ]
 
 
-PHASE_GROUPS = ("kalman", "ssd", "sv", "run")
+# ---- the reference's warm-start cascade: run("NS") → run("SD-NS"), phase 16 --
+
+#: the cascade's results in [16] on an H100: the first 16 hex digits of the
+#: sha256 of the NS and SD-NS in-sample parameters (float64 bytes, as ``run``
+#: returns them) and of SD-NS's expanding-window forecast CSV (its bytes), and
+#: K4's launches in ``run("SD-NS")``; [16] must repeat them bit for bit
+#: (recorded on an NVIDIA H100 80GB HBM3)
+CASCADE_FITS = {"ns_params_sha256": "b16e901df681dcc8", "sdns_params_sha256": "7961767537d0d7ac",
+                "forecasts_sha256": "0be45741c216fcff", "K4": 182}
+
+#: (code, in-sample end, group iterations) of [16]'s two runs: NS at the
+#: reference's budget, its 4 origins 357..360; SD-NS at 1 group iteration
+#: and 1 origin (360, in-sample end 360), the depth the script's time limit
+#: allows (a score-driven fit costs ≈3–7 s of plain scans on the card, a
+#: predict 1–2 s, a group iteration more another 2–4 s)
+CASCADE_RUNS = (("NS", RUN_T_IN, 10), ("SD-NS", T_MONTHS, 1))
+#: the NS start: λ = 0.4 (γ = ln 0.39), δ = (0.4, −0.1, 0.05), Φ = 0.85 I
+CASCADE_NS_START = [math.log(0.39), 0.4, -0.1, 0.05] + (0.85 * np.eye(3)).T.reshape(-1).tolist()
+#: the SD-NS start: A = 1e-3, B = 0.97; its [ω; δ; Φ] tail is NS's fit
+CASCADE_SD_START = [1e-3, 0.97] + CASCADE_NS_START
+
+
+def write_cascade_inputs(root, panel):
+    """The data and maturity CSVs of thread "1" and the NS and SD-NS
+    initial parameters under ``root`` (the working directory of the runs)."""
+    data_dir = os.path.join(root, "YieldFactorModels.jl", "data")
+    os.makedirs(data_dir)
+    np.savetxt(os.path.join(data_dir, "thread_id__1__data.csv"), panel, delimiter=",")
+    np.savetxt(os.path.join(data_dir, "thread_id__1__maturities.csv"), MATURITIES,
+               delimiter=",")
+    for code, p0 in (("NS", CASCADE_NS_START), ("SD-NS", CASCADE_SD_START)):
+        init_dir = os.path.join(root, "YieldFactorModels.jl", "initializations", code)
+        os.makedirs(init_dir)
+        np.savetxt(os.path.join(init_dir, f"init_params_{code}.csv"), np.asarray(p0),
+                   delimiter=",")
+    return os.path.join(root, "YieldFactorModels.jl", "results", "thread_id__1")
+
+
+@contextlib.contextmanager
+def recorded_fits(optimize, static_model):
+    """Inside the block: every ``estimate_steps`` call's (code, window end,
+    first start as given, start after the initialization grid, ll), and the
+    device type of every static loss evaluation."""
+    acc = {"fits": [], "static_devices": {}}
+    steps, inits, run = (optimize.estimate_steps, optimize.try_initializations,
+                         static_model._run)
+    grid = []
+
+    def recorded_steps(spec, data, all_params, *a, **k):
+        grid.clear()
+        out = steps(spec, data, all_params, *a, **k)
+        acc["fits"].append({"code": spec.model_string, "end": int(k["end"]),
+                            "given": np.asarray(all_params, dtype=np.float64)[:, 0].copy(),
+                            "start": grid[0][:, 0], "ll": float(out[1])})
+        return out
+
+    def recorded_inits(*a, **k):
+        out = inits(*a, **k)
+        grid.append(out)
+        return out
+
+    def counted_run(spec, params, *a, **k):
+        kind = params.device.type
+        acc["static_devices"][kind] = acc["static_devices"].get(kind, 0) + 1
+        return run(spec, params, *a, **k)
+
+    optimize.estimate_steps, optimize.try_initializations = recorded_steps, recorded_inits
+    static_model._run = counted_run
+    try:
+        yield acc
+    finally:
+        optimize.estimate_steps, optimize.try_initializations = steps, inits
+        static_model._run = run
+
+
+def cascade_phases(yfm, dev, report):
+    """Phase 16: the reference's warm-start cascade on the card — ``run("NS")``
+    (the static λ family: its loss on the card's tensors, no kernel) then
+    ``run("SD-NS")`` warm-started from NS's results (K4).  Returns the
+    kernels line's entry for K4 on this path."""
+    import tempfile
+
+    from yieldfactormodels_jl_tpu_torch.estimation import optimize
+    from yieldfactormodels_jl_tpu_torch.models import static_model
+    from yieldfactormodels_jl_tpu_torch.ops import fused_ssd
+    from yieldfactormodels_jl_tpu_torch.persistence import database as tdb
+    from yieldfactormodels_jl_tpu_torch.utils.profiling import StageTimer
+
+    f32 = torch.float32
+    begin_phase(f'[16] the cascade run("NS") → run("SD-NS"): N={N_MATURITIES}, T={T_MONTHS}, '
+                f"float32, NS with 4 re-estimated origins, SD-NS with 1")
+    panel = make_dns_panel(seed=21)
+    panel32 = torch.as_tensor(panel, device=dev, dtype=f32)
+    specs = {code: (yfm.create_model(code, MATURITIES)[0],
+                    yfm.create_model(code, MATURITIES, float_type="float64")[0])
+             for code in ("NS", "SD-NS")}
+    walls, stages, records, k4_events = {}, {}, {}, []
+    with tempfile.TemporaryDirectory(prefix="yfm_cascade_") as root:
+        results = write_cascade_inputs(root, panel)
+        with recorded_fits(optimize, static_model) as rec:
+            for code, t_in, iters in CASCADE_RUNS:
+                timer = StageTimer()
+                with _chdir(root), instrumented_run(yfm, timer, [], []), \
+                        timed_estimate_steps(optimize, fused_ssd) as phases, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    fused_ssd.batched_loss.launches = 0
+                    fused_ssd.batched_loss_reference.calls = 0
+                    t0 = time.perf_counter()
+                    _, params = yfm.run("1", t_in, RUN_H, True, code, "float32",
+                                        window_type="expanding", max_group_iters=iters,
+                                        scratch_dir=root + os.sep)
+                    torch.cuda.synchronize()
+                    walls[code] = time.perf_counter() - t0
+                    k4 = (fused_ssd.batched_loss.launches,
+                          fused_ssd.batched_loss_reference.calls)
+                stages[code] = timer.summary()
+                records[code] = np.asarray(params, dtype=np.float64)
+                if code == "NS":
+                    static_devices = dict(rec["static_devices"])
+                    check(static_devices.get("cuda", 0) >= 1 and set(static_devices) == {"cuda"},
+                          f'run("NS"): static loss evaluations by device {static_devices}')
+                    check(k4[0] == 0, f'run("NS") launched K4 {k4[0]} times')
+                else:
+                    k4_launches, k4_plain = k4
+                    k4_events = phases["k4_events"]
+                    check(k4_launches >= 1 and k4_plain == 0,
+                          f'run("SD-NS"): K4 launches {k4_launches}, plain-version calls '
+                          f"{k4_plain}")
+                    check(rec["static_devices"] == static_devices,
+                          f'run("SD-NS") evaluated a static loss: {rec["static_devices"]}')
+                check_run_artifacts(os.path.join(results, code), f'run("{code}")',
+                                    n_origins=T_MONTHS + 1 - t_in, code=code, t_in=t_in)
+        fits = rec["fits"]
+        res_ns, res_sd = os.path.join(results, "NS"), os.path.join(results, "SD-NS")
+        ns_out = np.loadtxt(os.path.join(res_ns, "NS__thread_id__1__out_params.csv"))
+        ll_in = float(np.loadtxt(os.path.join(res_ns, "NS__thread_id__1__loss.csv")))
+        merged_ns = os.path.join(res_ns, "db", "forecasts_expanding_merged.sqlite3")
+        ns_rows = {t: tdb.read_task_params(merged_ns, t)
+                   for t in range(RUN_T_IN, RUN_T_IN + 4)}
+        fc_sd = os.path.join(res_sd, "SD-NS__thread_id__1__expanding_window_forecasts.csv")
+        fc_sha = hashlib.sha256(open(fc_sd, "rb").read()).hexdigest()[:16]
+
+    # the fits: the in-sample one first, then one an origin, each at or above
+    # its start (the start after the grid, in the run's own evaluation: the
+    # static loss on the card, K4)
+    for code, t_in, _ in CASCADE_RUNS:
+        mine = [f for f in fits if f["code"] == code]
+        check(mine[0]["end"] == t_in and sorted(f["end"] for f in mine[1:])
+              == list(range(t_in, T_MONTHS + 1)), f"{code}: fits {[f['end'] for f in mine]}")
+        s32 = specs[code][0]
+        for f in mine:
+            x0 = optimize._sanitize(yfm.untransform_params(
+                specs[code][1], torch.as_tensor(f["start"])).numpy())
+            c0 = yfm.transform_params(s32, torch.as_tensor(x0, device=dev, dtype=f32))[None]
+            f["ll_start"] = float(optimize._batch_loss(s32, c0, panel32, 0, f["end"])[0])
+            check(f["ll"] >= f["ll_start"], f"{code} fit on [0, {f['end']}) ended at ll "
+                  f"{f['ll']} below its start's {f['ll_start']}")
+    # the in-sample NS fit against the plain float64 loss on the CPU
+    ll_cpu = float(yfm.get_loss(specs["NS"][1], ns_out, panel.astype(np.float32), 0, RUN_T_IN,
+                                device="cpu"))
+    check(abs(ll_in - ll_cpu) <= 1e-4 * abs(ll_cpu),
+          f"NS in-sample ll {ll_in} vs the plain float64 loss on the CPU {ll_cpu}")
+    # SD-NS's warm starts: the [ω; δ; Φ] tail of its first start is NS's
+    # out-params in-sample and NS's merged-DB row for the task per origin
+    sd = [f for f in fits if f["code"] == "SD-NS"]
+    tail = ns_out.size
+    check(np.array_equal(sd[0]["given"][-tail:], ns_out),
+          "SD-NS in-sample start: its tail is not NS's out-params")
+    for f in sd[1:]:
+        check(np.array_equal(f["given"][-tail:], ns_rows[f["end"]]),
+              f"SD-NS origin {f['end']}: its start's tail is not NS's merged-DB row")
+    print(f'  run("NS"): {static_devices} static loss evaluations by device; '
+          f"in-sample ll {ll_in!r} (plain f64 on the CPU {ll_cpu!r})")
+    print("  SD-NS starts: the in-sample tail is NS's out-params, each origin's NS's "
+          "merged-DB row for its task, bit for bit")
+
+    by_batch, k4_dev_s = {}, {}
+    for B, phase, e0, e1 in k4_events:
+        k4_dev_s[phase] = k4_dev_s.get(phase, 0.0) + e0.elapsed_time(e1) / 1e3
+        by_batch[B] = by_batch.get(B, 0) + 1
+    k4_s = sum(k4_dev_s.values())
+    for code in ("NS", "SD-NS"):
+        print(f'  run("{code}"): wall {walls[code]:.2f} s; fits (end, start ll → ll): '
+              + ", ".join(f"({f['end']}, {f['ll_start']:.8f} → {f['ll']:.8f})"
+                          for f in fits if f["code"] == code))
+        print("    wall by stage: " + ", ".join(
+            f"{k} {v['total']:.2f} s ({v['count']}×)" for k, v in stages[code].items()))
+    nm_s = stages["SD-NS"].get("neldermead", {"total": 0.0})["total"]
+    nm_k4 = k4_dev_s.get("neldermead_s", 0.0)
+    print(f'  run("SD-NS"): K4 launches {k4_launches} by batch size '
+          f"{dict(sorted(by_batch.items()))}; K4 on the card {k4_s:.2f} s of the "
+          f"{walls['SD-NS']:.2f} s wall ({100 * k4_s / walls['SD-NS']:.1f}%), the host and "
+          f"the plain scans the rest ({100 * (1 - k4_s / walls['SD-NS']):.1f}%); "
+          f"Nelder–Mead {nm_s:.2f} s, K4 {nm_k4:.2f} s of it")
+    record = {"ns_params_sha256": sha16(records["NS"]),
+              "sdns_params_sha256": sha16(records["SD-NS"]),
+              "forecasts_sha256": fc_sha, "K4": k4_launches}
+    print(f"  record: {json.dumps(record)}")
+    check(CASCADE_FITS == record, f"cascade: differs from the recorded {CASCADE_FITS}")
+    print("  the recorded parameters, forecasts and K4 launches bit for bit")
+
+    # K4 at the path's shapes against its plain versions: the in-sample
+    # fit's grid (its start and the 30 A×B guesses) and the fitted point
+    s32, s64 = specs["SD-NS"]
+    panel64 = panel32.double()
+    t_sd = CASCADE_RUNS[1][1]
+    grid = np.concatenate([ssd_draws(s64, sd[0]["given"], 31, seed=0), records["SD-NS"][None]])
+    counts = {}
+    err = hold_k4_counted(counts, f"K4 B={grid.shape[0]}: SD-NS grid and fit on [0, {t_sd})",
+                          s64, torch.as_tensor(grid, device=dev), panel64, 0, t_sd)
+    p1 = torch.as_tensor(records["SD-NS"][None], device=dev, dtype=f32)
+    inputs = fused_ssd.kernel_inputs(s32, p1, panel32, 0, t_sd)
+    ms = cuda_ms(lambda: fused_ssd.launch(inputs), reps=20)
+    plain_ms, _ = timed_call(lambda: fused_ssd.batched_loss_reference(s32, p1, panel32, 0,
+                                                                      t_sd))
+    flops = ssd_flops(s32, panel32, 0, t_sd)
+    bound_ms, bound_by = bound(nbytes(*inputs.buffers, inputs.out), flops)
+    print(f"  K4 B=1 (the Nelder–Mead batch): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}); K4 time × launches ≈ {k4_s:.2f} s")
+    report["cascade"] = {
+        "walls_s": walls, "stages": stages, "record": record,
+        "fits": [{k: v for k, v in f.items() if k in ("code", "end", "ll", "ll_start")}
+                 for f in fits],
+        "static_devices": static_devices, "insample_ll": ll_in, "insample_ll_cpu_f64": ll_cpu,
+        "k4_launches": k4_launches, "k4_launches_by_batch": by_batch,
+        "k4_device_s": k4_dev_s, "k4_share": k4_s / walls["SD-NS"], "k4_determined": counts}
+    return [{"name": "K4 fused_ssd in run(SD-NS)", "route": "cuda",
+             "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_ssd.cu",
+             "replaces": "yieldfactormodels_jl_tpu/ops/pallas_ssd.py:214",
+             "launches": k4_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "launches_by_batch": by_batch}]
+
+
+PHASE_GROUPS = ("kalman", "ssd", "sv", "run", "cascade")
+#: the kernel library each phase group launches first
+FIRST_LIBRARY = {"kalman": "fused_kf", "ssd": "fused_ssd", "sv": "fused_pf",
+                 "run": "fused_kf", "cascade": "fused_ssd"}
 
 
 def main(json_path=None, only=PHASE_GROUPS) -> int:
@@ -3780,25 +4058,26 @@ def main(json_path=None, only=PHASE_GROUPS) -> int:
     # ---- 1. build ------------------------------------------------------------
     begin_phase("[1] build")
     t0 = time.perf_counter()
-    # every nvcc at once; the phases wait for the kernels the main path
-    # launches, and the clock builds, at the lowest CPU priority, finish
-    # beside [2]–[4] until their first use ([5], [10], [13])
+    # every nvcc at once; each library is waited for at its first use (the
+    # first phase's here), the clock builds at the lowest CPU priority
     main_libs = [name for name in _build.KERNELS if not name.endswith("_clocks")]
     _build.start_all(later=[name for name in _build.KERNELS if name not in main_libs])
-    for name in main_libs:
-        _build.load(name)
+    first = FIRST_LIBRARY[next(g for g in PHASE_GROUPS if g in only)]
+    _build.load(first)
     report["build_s"] = time.perf_counter() - t0
-    print(f"  built {main_libs} in {report['build_s']:.1f} s ("
-          + ", ".join(f"{_build.BUILD_SECONDS[n]:.1f}" for n in main_libs
-                      if n in _build.BUILD_SECONDS)
-          + " s each from its start); the clock builds go on")
-    print_build_logs(main_libs)
+    print(f"  built {first} in {report['build_s']:.1f} s; the other builds go on, each "
+          f"waited for at its first use")
 
     kernels = []
     try:
         kernels = run_phase_groups(yfm, dev, report, only)
+        for name in main_libs:  # a main library no phase loaded must build too
+            _build.load(name)
     finally:
         _build.stop_pending()
+    print("  the main builds, each from its start to its first use: " + ", ".join(
+        f"{n} {_build.BUILD_SECONDS[n]:.1f} s" for n in main_libs if n in _build.BUILD_SECONDS))
+    print_build_logs(main_libs)
     clock_libs = [name for name in _build.KERNELS if name in _build.BUILD_SECONDS
                   and name not in main_libs]
     print(f"  the clock builds {clock_libs}, each from its start: "
@@ -3831,22 +4110,29 @@ def print_build_logs(names):
 
 
 def run_phase_groups(yfm, dev, report, only):
-    """Phases [2]–[15] of the groups in ``only``; returns the kernels line."""
+    """Phases [2]–[16] of the groups in ``only``; returns the kernels line."""
     from yieldfactormodels_jl_tpu_torch.ops import _build
 
     kernels = []
+
+    def built(name):  # wait for a library, then dump its SASS in a thread
+        _build.load(name)
+        prefetch_sass(pool, [_build._lib_path(name)])
+
     with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
-        prefetch_sass(pool, [_build._lib_path(name) for group, name in
-                             (("kalman", "fused_kf"), ("ssd", "fused_ssd"), ("sv", "fused_pf"))
-                             if group in only])
         if "kalman" in only:
+            built("fused_kf")
             kernels += kalman_phases(yfm, dev, report)
         if "ssd" in only:
+            built("fused_ssd")
             kernels.append(ssd_phases(yfm, dev, report))
         if "sv" in only:
+            built("fused_pf")
             kernels.append(sv_phases(yfm, dev, report))
         if "run" in only:
             kernels += run_phases(yfm, dev, report)
+        if "cascade" in only:
+            kernels += cascade_phases(yfm, dev, report)
     return kernels
 
 
@@ -3859,7 +4145,7 @@ if __name__ == "__main__":
     ap.add_argument("--only", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups to run after the build: "
                          "kalman ([2]–[8]), ssd ([9]–[11]), sv ([12]–[14]), run "
-                         "([15]); all by default")
+                         "([15]), cascade ([16]); all by default")
     args = ap.parse_args()
     only = tuple(args.only.split(","))
     if not set(only) <= set(PHASE_GROUPS):

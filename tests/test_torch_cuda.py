@@ -994,3 +994,81 @@ def test_estimate_sv_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(card_run[1], cpu_run[1], rtol=1e-8)
     np.testing.assert_allclose(card_run[2], cpu_run[2], rtol=1e-8)
     np.testing.assert_array_equal(card_run[3], cpu_run[3])
+
+
+def _static_draws(spec, B, rng):
+    """(B, P) static draws: λ = 0.5 (or small neural weights) jittered, δ
+    near a DNS curve, Φ near 0.9 I."""
+    p = np.zeros((B, spec.n_params))
+    L = spec.L
+    p[:, :L] = (np.log(0.5) if L == 1 else 0.0) + 0.2 * rng.standard_normal((B, L))
+    p[:, L:L + 3] = [0.3, -0.1, 0.05] + 0.05 * rng.standard_normal((B, 3))
+    p[:, L + 3:] = (0.9 * np.eye(3)).T.reshape(-1) + 0.01 * rng.standard_normal((B, 9))
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["NS", "NNS"])
+def test_static_loss_on_the_card_matches_the_cpu(card, code):
+    """The batched static loss, loss array and predict on the card against
+    the CPU in float64 (rtol 1e-9), with a NaN column at the window's first
+    step, a partially NaN column after it and a NaN forecast tail; and the
+    float32 loss against the float64 CPU at rtol 5e-4."""
+    from tests import oracle
+
+    rng = np.random.default_rng(1)
+    spec, _ = P.create_model(code, MATS, float_type="float64")
+    spec32, _ = P.create_model(code, MATS)
+    data = oracle.simulate_dns_panel(rng, np.asarray(MATS), T=60)
+    data[:, 5] = np.nan
+    data[2, 50] = np.nan
+    data = np.concatenate([data, np.full((len(MATS), 6), np.nan)], axis=1)
+    p = _static_draws(spec, 64, rng)
+    got = P.get_loss(spec, p, data, 5, 45)
+    assert got.is_cuda
+    want = P.get_loss(spec, p, data, 5, 45, device="cpu").numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-9)
+    assert P.get_loss(spec, p, data, 5, 55).isinf().all()      # the partial column
+    np.testing.assert_allclose(P.get_loss_array(spec, p, data, 5, 45).cpu().numpy(),
+                               P.get_loss_array(spec, p, data, 5, 45, device="cpu").numpy(),
+                               rtol=1e-9, atol=1e-12)
+    res, ref = P.predict(spec, p[:4], data[:, :60]), P.predict(spec, p[:4], data[:, :60],
+                                                               device="cpu")
+    for k in ref:
+        np.testing.assert_allclose(res[k].cpu().numpy(), ref[k].numpy(), rtol=1e-9,
+                                   atol=1e-12, err_msg=k)
+    np.testing.assert_allclose(P.get_loss(spec32, p, data, 5, 45).cpu().numpy(), want,
+                               rtol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["1C", "SD-NS", "NS"])
+def test_diagnose_on_the_card_gives_the_cpus_code(card, code):
+    """``taxonomy.diagnose`` on the card against the CPU in float64: the
+    same code, the loss at rtol 1e-9, on a healthy point, non-finite
+    parameters, an all-NaN window and a blown-up state."""
+    from tests import oracle
+    from yieldfactormodels_jl_tpu_torch.robustness import taxonomy
+
+    spec, _ = P.create_model(code, MATS, float_type="float64")
+    p = {"1C": lambda s: oracle.stable_1c_params(s, np.float64),
+         "SD-NS": oracle.stable_msed_params,
+         "NS": lambda s: oracle.stable_ns_params(s, np.float64)}[code](spec)
+    data = oracle.simulate_dns_panel(np.random.default_rng(2), np.asarray(MATS), T=40)
+    lo, _ = spec.layout["delta"]
+    overflow, exploded, gap = p.copy(), p.copy(), data.copy()
+    overflow[lo] = np.inf
+    exploded[lo] = 1e300
+    gap[:, 10:20] = np.nan
+    cases = {"healthy": (p, data, 0, 40, 0),
+             "non-finite parameters": (overflow, data, 0, 40, taxonomy.TRANSFORM_OVERFLOW),
+             "all-NaN window": (p, gap, 10, 20, taxonomy.MISSING_ALL_OBS),
+             "blown-up state": (exploded, data, 0, 40, taxonomy.STATE_EXPLODED)}
+    for name, (q, d, s, e, flag) in cases.items():
+        ll_g, code_g = taxonomy.diagnose(spec, q, d, s, e)
+        ll_c, code_c = taxonomy.diagnose(spec, q, d, s, e, device="cpu")
+        assert code_g == code_c and code_g & flag == flag, name
+        if np.isfinite(ll_c):
+            np.testing.assert_allclose(ll_g, ll_c, rtol=1e-9, err_msg=name)
+        else:
+            assert ll_g == ll_c, name

@@ -154,10 +154,24 @@ def test_estimate_steps_refusals(yields_panel, monkeypatch):
     sd, _ = P.create_model("SD-NS", tuple(MATS), float_type="float64")
     p = oracle.stable_msed_params(sd)[:, None]
     groups = list(P.get_param_groups(sd))
+    # the static families run (tests/test_torch_cascade.py holds "NS" and
+    # "NNS" against JAX), but not their (δ, Φ) group off the closed form, nor
+    # the random walk, whose (δ, Φ) group never takes the closed form: both
+    # are the per-start L-BFGS of item 4
     ns, _ = P.create_model("NS", tuple(MATS), float_type="float64")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        P.estimate_steps(ns, data, np.zeros((ns.n_params, 1)),
-                         P.get_param_groups(ns), device=CPU)
+    p_ns = oracle.stable_ns_params(ns, np.float64)[:, None]
+    _, ll, _, conv = P.estimate_steps(
+        ns, data, p_ns, P.get_param_groups(ns), max_group_iters=1,
+        optimizers={"1": ("neldermead", dict(max_iters=2))}, device=CPU)
+    assert np.isfinite(ll) and conv.iterations == 1
+    gapped = data.copy()
+    gapped[:, 7] = np.nan
+    with pytest.raises(NotImplementedError, match="item 4"):
+        P.estimate_steps(ns, gapped, p_ns, P.get_param_groups(ns), device=CPU)
+    rw, _ = P.create_model("RW", tuple(MATS), float_type="float64")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        P.estimate_steps(rw, data, np.zeros((rw.n_params, 1)), P.get_param_groups(rw),
+                         device=CPU)
     # the Kalman families run (tests/test_torch_kalman_steps.py holds them
     # against JAX)
     c1, _ = P.create_model("1C", tuple(MATS), float_type="float64")

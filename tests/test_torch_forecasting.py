@@ -10,9 +10,9 @@ on the CPU, in ``tmp_path``.
   stale lock broken by TTL, a corrupt shard skipped with its summary and kept
   for repair, an at-most-once merge publish, the ``merge`` chaos seam.
 - ``load_data``/``extend_data``, ``StageTimer``'s summary and the window
-  checkpoint's round trip; the refusals (``sentinel_policy="retry"`` names
-  item 2, a ``checkpoint_root`` reaches ``estimate_steps``' item 11, no card
-  without ``device="cpu"``).
+  checkpoint's round trip; ``sentinel_policy="retry"`` raising the
+  sentinel for a non-finite fit; the refusals (a ``checkpoint_root``
+  reaches ``estimate_steps``' item 11, no card without ``device="cpu"``).
 
 The forecast loops' numbers against JAX's are in tests/test_torch_run.py.
 """
@@ -35,8 +35,10 @@ from yieldfactormodels_jl_tpu.utils.profiling import StageTimer as JStageTimer  
 from yieldfactormodels_jl_tpu_torch import forecasting as tfc  # noqa: E402
 from yieldfactormodels_jl_tpu_torch.orchestration import chaos  # noqa: E402
 from yieldfactormodels_jl_tpu_torch.orchestration.checkpoint import WindowCheckpoint  # noqa: E402
+from yieldfactormodels_jl_tpu_torch.orchestration.retry import SentinelFailure  # noqa: E402
 from yieldfactormodels_jl_tpu_torch.persistence import database as tdb  # noqa: E402
 from yieldfactormodels_jl_tpu_torch.persistence import locks as tlocks  # noqa: E402
+from yieldfactormodels_jl_tpu_torch.robustness import taxonomy  # noqa: E402
 from yieldfactormodels_jl_tpu_torch.utils import data_management as tdm  # noqa: E402
 from yieldfactormodels_jl_tpu_torch.utils.profiling import StageTimer  # noqa: E402
 
@@ -230,13 +232,24 @@ def test_data_timer_and_checkpoint_match_jax(tmp_path):
     assert ck.load(sig) is None
 
 
-def test_forecast_refusals(tmp_path):
+def test_forecast_refusals(tmp_path, monkeypatch):
     _, ts = _specs(tmp_path)
     data = _panel(T=34)
     init = oracle.stable_1c_params(ts, np.float64)
     args = (ts, data, "1", 32, "expanding", 30, 1, 3, init)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tfc.run_single_window_task(*args, sentinel_policy="retry", device=CPU)
+    # a fit that returns a non-finite loss surfaces as the retriable sentinel,
+    # its code one coded evaluation at the returned point (held against JAX
+    # in tests/test_torch_coded.py)
+    bad = init.copy()
+    bad[ts.layout["delta"][0]] = np.inf
+    with monkeypatch.context() as mp:
+        mp.setattr(tfc, "_estimate_for_window", lambda *a, **k: (-np.inf, bad))
+        with pytest.raises(SentinelFailure, match="non-finite loss") as err:
+            tfc.run_single_window_task(*args, sentinel_policy="retry", device=CPU)
+    assert err.value.seam == "estimate"
+    assert err.value.code == taxonomy.diagnose(ts, bad, data, 0, 32, device=CPU)[1] != 0
+    with pytest.raises(ValueError, match="sentinel_policy"):
+        tfc.run_single_window_task(*args, sentinel_policy="drop", device=CPU)
     with pytest.raises(NotImplementedError, match="item 11"):
         tfc.run_single_window_task(*args, param_groups=P.get_param_groups(ts),
                                    checkpoint_root=str(tmp_path / "ck"), device=CPU)

@@ -304,9 +304,12 @@ def test_engine_and_family_errors(rng):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.get_loss(ts, p, data, engine="slr", device=CPU)
     assert P.get_loss(ts, p, data, engine="sqrt", device=CPU).shape == ()
+    # the static families run (tests/test_torch_static.py holds them against
+    # JAX); an explicit engine is a caller error for them, as in JAX
     static, _ = P.create_model("NS", MATS, float_type="float64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.get_loss(static, np.zeros(static.n_params), data, device=CPU)
+    assert P.get_loss(static, np.zeros(static.n_params), data, device=CPU).shape == ()
+    with pytest.raises(ValueError, match="not applicable"):
+        P.get_loss(static, np.zeros(static.n_params), data, engine="univariate", device=CPU)
 
 
 def test_numpy_input_without_device_needs_cuda(rng):

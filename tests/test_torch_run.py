@@ -16,7 +16,8 @@ writes relative to it), from the same ``init_params_<code>.csv``:
   same parameters.
 - "1SSD-NNS" without optimization or re-estimation (the score-driven
   dispatch), the port alone, against its own score-driven filter.
-- The refusals and the random initial parameters written to disk.
+- The refusals ("RW"'s fit, item 4; "SD-NS" off the closed form, item 6)
+  and the random initial parameters written to disk.
 """
 
 import contextlib
@@ -241,8 +242,15 @@ def test_run_refusals_and_random_initial_parameters(tmp_path, monkeypatch):
         P.run("1", 30, 3, True, "1C", "float64", orchestrated=True, **kw)
     with pytest.raises(NotImplementedError, match="item 9"):
         P.run("1", 30, 3, True, "1C", "float64", second_order="fisher", **kw)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        P.run("1", 30, 3, True, "NS", "float64", **kw)
+    # "NS" runs (tests/test_torch_cascade.py holds its cascade into "SD-NS"
+    # against JAX); the random walk's fit is item 4's per-start L-BFGS, and a
+    # score-driven (δ, Φ) group off the closed form still needs item 6
+    with pytest.raises(NotImplementedError, match="item 4"):
+        P.run("1", 30, 3, True, "RW", "float64", **kw)
+    with monkeypatch.context() as mp:
+        mp.setenv("YFM_MSED_CLOSED", "0")
+        with pytest.raises(NotImplementedError, match="item 6"):
+            P.run("1", 30, 3, True, "SD-NS", "float64", **kw)
     assert P.run("1", 30, 3, True, "pC", "float64", **kw) is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -310,8 +310,9 @@ def test_engines_groups_and_refusals():
         P.get_loss(ssd, p, data, engine="score_tree", device=CPU)
     with pytest.raises(ValueError, match="not applicable"):
         P.get_loss(ts, p, data, engine="univariate", device=CPU)
+    # the static families run now (tests/test_torch_static.py holds them
+    # against JAX)
     _, ns = _specs("NS")
-    for call in (lambda: P.get_loss(ns, np.zeros(ns.n_params), data, device=CPU),
-                 lambda: P.predict(ns, np.zeros(ns.n_params), data, device=CPU)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
+    assert P.get_loss(ns, np.zeros(ns.n_params), data, device=CPU).shape == ()
+    res = P.predict(ns, np.zeros(ns.n_params), data, device=CPU)
+    assert res["preds"].shape == data.shape and res["factors"].shape == (3, data.shape[1])

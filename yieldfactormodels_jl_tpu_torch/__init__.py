@@ -10,13 +10,17 @@ log-likelihood kernel, its differentiable twin (forward and adjoint
 kernels, for DNS/AFNS and the TVλ EKF), the fused multi-start MLE
 ``estimate`` and its rolling-window form ``estimate_windows``; for the
 score-driven families the scan filter, the fused value kernel and the
-``try_initializations`` grid; the block-coordinate ``estimate_steps`` for
-the Kalman and score-driven families; the square-root engine "sqrt"; under
+``try_initializations`` grid; the static families (OLS cross-sections and
+the random walk) and their initial proposals; the block-coordinate
+``estimate_steps`` for the Kalman, score-driven and static families; the
+coded engines and the failure taxonomy's ``diagnose``; the square-root
+engine "sqrt"; under
 stochastic-volatility measurement errors the particle filter, its fused
 kernel over a draw batch and the simulated MLE ``estimate_sv``; and the
 reference's driver: ``run`` (CSV panel → in-sample fit and CSVs → rolling
-forecasts) with ``run_rolling_forecasts``, the SQLite forecast shards, their
-merge and the legacy CSV export.
+forecasts, and the warm-start cascade from a static model into a
+score-driven one) with ``run_rolling_forecasts``, the SQLite forecast
+shards, their merge and the legacy CSV export.
 """
 
 from .carry import params_from_jax

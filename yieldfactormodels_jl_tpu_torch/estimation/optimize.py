@@ -1,6 +1,6 @@
 """Estimation on the fused kernels: the multi-start MLE ``estimate``, its
 rolling-window form ``estimate_windows``, and the block-coordinate
-``estimate_steps`` of the Kalman and score-driven families.
+``estimate_steps`` of the Kalman, score-driven and static families.
 
 Counterpart of the fused paths of ``yieldfactormodels_jl_tpu/estimation/
 optimize.py``.  ``estimate`` runs one batched L-BFGS loop over the (S, P)
@@ -14,8 +14,10 @@ whose rows carry their own windows.  ``estimate_steps`` alternates
 parameter groups in Nelder–Mead blocks whose every candidate batch is one
 value-kernel call: K1 for the Kalman families (whose groups are all one
 Nelder–Mead block), K4 (``ops/fused_ssd``) for the score-driven ones,
-which first evaluate the A×B initialization grid in one K4 call and solve
-the (δ, Φ) group in closed form on a fully observed window; the winner is
+which first evaluate the A×B initialization grid in one K4 call, and the
+batched static loss (``models/static_model``, which has no kernel) for the
+static families; the score-driven and static families solve the (δ, Φ)
+group in closed form on a fully observed window.  The winner is
 re-evaluated by the family's plain engine.  On the CPU the kernels' plain
 versions run.
 
@@ -24,10 +26,11 @@ item: the per-start ``"vmap"`` optimizer and ``"time_sharded"`` objective,
 the Newton polish (``second_order`` / ``YFM_NEWTON``), the amortized warm
 start (``warm_start`` / ``YFM_AMORT``), the escalation ladder
 (``YFM_ESCALATE``), checkpointed ``estimate_steps``, and the gradient-based
-groups of ``estimate_steps``: L-BFGS or Adam on a Kalman group (the
-per-start path), and for the score-driven families L-BFGS where the closed
-form does not apply and Adam, which need second-order autograd through the
-inner score.
+groups of ``estimate_steps``: L-BFGS or Adam on a Kalman or static group
+(the per-start path; a static (δ, Φ) group off the closed form, and so
+every random-walk fit), and for the score-driven families L-BFGS where the
+closed form does not apply and Adam, which need second-order autograd
+through the inner score.
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ from .. import config
 from ..models import api
 from ..models.params import transform_params, untransform_params
 from ..models.specs import ModelSpec
-from ..models import score_driven
-from ..models.params import get_new_initial_params
+from ..models import score_driven, static_model
+from ..models.params import get_new_initial_params, unpack_static
 from ..ops import fused_kf, fused_kf_grad, fused_ssd
+from ..ops.linalg import ols_solve_columns
 from .batched_lbfgs import batched_lbfgs
 from .neldermead import nelder_mead_batched
 
@@ -73,9 +77,6 @@ _NOT_PORTED = {
     "second_order_ad": "ROADMAP.md Queue 1 item 6 (remaining: the "
                        "gradient-based MSED groups, which need second-order "
                        "autograd through the inner score)",
-    "static": "ROADMAP.md Queue 1 item 6 (the static families)",
-    "diagnose": "ROADMAP.md Queue 1 item 2 (taxonomy.diagnose and the "
-                "coded engines)",
     "orchestrated": "ROADMAP.md Queue 1 item 11 (orchestration/supervisor.py, "
                     "the leased-queue driver)",
 }
@@ -244,6 +245,14 @@ def _resolve_objective(spec: ModelSpec, objective: str) -> str:
     return "fused"
 
 
+def _require_fused_family(spec: ModelSpec) -> None:
+    """Refuse ``estimate`` on a family the fused kernels do not cover: the
+    JAX package runs its per-start "vmap" objective for a static one."""
+    if spec.is_static:
+        raise _not_ported(f"estimate for family {spec.family!r}", "vmap")
+    api._require_kalman(spec)
+
+
 def _check_unported_knobs(second_order, warm_start) -> None:
     """Refuse every switch of the JAX ``estimate`` that the port has no
     code behind, whether given per call or armed in the environment."""
@@ -275,7 +284,7 @@ def estimate(spec: ModelSpec, data, all_params, start=0, end=None,
 
     Returns (init_params, ll, best_params, Convergence(converged, iterations))
     for the winning start, as the JAX package does."""
-    api._require_kalman(spec)
+    _require_fused_family(spec)
     kind = _resolve_objective(spec, objective)
     _check_unported_knobs(second_order, warm_start)
     data = config.as_tensor(data, device, spec.dtype)
@@ -327,7 +336,7 @@ def estimate_windows(spec: ModelSpec, data, raw_starts, window_starts, window_en
 
     Returns (params (W, S, P) unconstrained, logliks (W, S)) as float64
     numpy arrays — higher is better; pick each window's start with argmax."""
-    api._require_kalman(spec)
+    _require_fused_family(spec)
     _resolve_objective(spec, objective)
     _check_unported_knobs(second_order, warm_start)
     data = config.as_tensor(data, device, spec.dtype)
@@ -382,11 +391,14 @@ def _batch_loss(spec: ModelSpec, cons, data, start, end):
     Kalman spec the loglik from K1 (``ops/fused_kf``); for a score-driven
     spec K4 for the detached-β̄ score it implements, and the reference's
     own scan over the draw axis for a ``detach_inner_beta=False`` spec, as
-    the JAX package sends such specs to its vmapped scan.  On the CPU the
-    kernels' plain versions run."""
+    the JAX package sends such specs to its vmapped scan; for a static spec
+    the batched static loss on the draws' device (the static families have
+    no kernel).  On the CPU the kernels' plain versions run."""
     if spec.is_kalman:
         return fused_kf._batched_loglik(spec, cons, data, start, end,
                                         dtype=spec.dtype)
+    if spec.is_static:
+        return static_model.get_loss(spec, cons, data, start, end)
     if spec.detach_inner_beta:
         return fused_ssd.batched_loss(spec, cons, data, start, end)
     return score_driven.get_loss(spec, cons, data, start, end)
@@ -398,14 +410,16 @@ def try_initializations(spec: ModelSpec, best_params, data, max_tries: int = 0,
     spec: ``best_params`` and the A×B guess grid (256 candidates for
     1SSD-NNS) in ONE call of the score-driven value kernel (the plain scan
     for a ``detach_inner_beta=False`` spec), and the best
-    candidate as the single start; for a Kalman spec ``best_params``
-    itself.  Numpy ``data`` goes to ``device`` (``None`` means CUDA)."""
+    candidate as the single start; for a static spec ``best_params`` and
+    ``max_tries`` jittered starts (``get_new_initial_params``, seeded by the
+    trial); for the random walk and a Kalman spec ``best_params`` itself.
+    Numpy ``data`` goes to ``device`` (``None`` means CUDA)."""
     best_params = np.asarray(best_params, dtype=np.float64).reshape(-1)
-    if spec.is_kalman:
-        return best_params[:, None]
+    if spec.is_static and spec.family != "random_walk":
+        return np.stack([best_params] + [get_new_initial_params(spec, best_params, t)
+                                         for t in range(1, max_tries + 1)], axis=1)
     if not spec.is_msed:
-        raise _not_ported(f"try_initializations for family {spec.family!r}",
-                          "static")
+        return best_params[:, None]
     trials = []
     for t in range(1, 1001):
         cand = get_new_initial_params(spec, best_params, t)
@@ -460,11 +474,12 @@ def _neldermead_group(spec: ModelSpec, X, inds, opts, data, start, end):
 
 def _msed_closed_applicable(spec: ModelSpec, inds, data, start, end) -> bool:
     """Whether the closed-form (δ, Φ) solve serves a group: a score-driven
-    spec with M = 3, the group exactly the contiguous (δ, Φ) tail, enough
-    rows for the 12 unknowns, and a fully observed window (with missing
-    columns β carries through Φ and the sub-objective is not quadratic).
-    ``YFM_MSED_CLOSED=0`` turns it off."""
-    if not spec.is_msed or spec.M != 3:
+    or static (not random-walk) spec with M = 3, the group exactly the
+    contiguous (δ, Φ) tail, enough rows for the 12 unknowns, and a fully
+    observed window (with missing columns β carries through Φ and the
+    sub-objective is not quadratic).  ``YFM_MSED_CLOSED=0`` turns it off."""
+    family_ok = spec.is_msed or spec.family in ("static_lambda", "static_neural")
+    if not family_ok or spec.M != 3:
         return False
     if os.environ.get("YFM_MSED_CLOSED", "1") == "0":
         return False
@@ -492,7 +507,8 @@ def _msed_closed_group(spec: ModelSpec, X, data, start, end):
     On a fully observed window the γ path and the post-update β̄ do not
     depend on (δ, Φ), so the loss is −Σ‖y_{t+1} − Z_{t+1}(μ + Φβ̄_t)‖², a
     12-unknown linear least squares in (μ, vec Φ): one trajectory pass of
-    the plain scan, a QR solve (ridge normal equations where R is
+    the plain scan (for a static spec, whose Z is constant, the per-column
+    OLS instead), a QR solve (ridge normal equations where R is
     singular), δ = (I − Φ)⁻¹μ with Φ's diagonal clipped into (−1, 1).  A
     start takes the candidate only where it improves the plain objective.
     Returns (X', f (S,))."""
@@ -502,10 +518,16 @@ def _msed_closed_group(spec: ModelSpec, X, data, start, end):
     N, T = data.shape
     t_idx = torch.arange(T - 1, device=X.device)
     keep = ((t_idx >= start) & (t_idx <= end - 2))[:, None, None]
-    _, _, outs = score_driven.scan_filter(spec, cons, data, start, end)
-    Z2, Z3 = outs["Z2"][:, :-1], outs["Z3"][:, :-1]        # (S, T−1, N) at γ_{t+1}
-    Zx = torch.stack([torch.ones_like(Z2), Z2, Z3], -1)    # (S, T−1, N, M)
-    bo = outs["beta_obs"][:, :-1]                          # (S, T−1, M)
+    if spec.is_msed:
+        _, _, outs = score_driven.scan_filter(spec, cons, data, start, end)
+        Z2, Z3 = outs["Z2"][:, :-1], outs["Z3"][:, :-1]    # (S, T−1, N) at γ_{t+1}
+        Zx = torch.stack([torch.ones_like(Z2), Z2, Z3], -1)  # (S, T−1, N, M)
+        bo = outs["beta_obs"][:, :-1]                      # (S, T−1, M)
+    else:
+        Zc = static_model.loadings_fn(spec, unpack_static(spec, cons).gamma)  # (S, N, M)
+        ysafe = torch.where(torch.isfinite(data), data, torch.zeros_like(data))
+        bo = ols_solve_columns(Zc, ysafe[:, :-1])          # (S, T−1, M)
+        Zx = Zc[:, None].expand(S, T - 1, N, M)
     # regressors of vec_rowmajor(Φ): column (m, k) is Z[:, :, m]·β̄[k]
     Dphi = (Zx[..., :, None] * bo[:, :, None, None, :]).reshape(S, T - 1, N, M * M)
     D = torch.cat([Zx, Dphi], -1)                          # (S, T−1, N, M+M²)
@@ -546,8 +568,8 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
                    tol: float = 1e-8, optimizers=None, start=0, end=None,
                    max_tries: int = 0, printing: bool = False, checkpoint=None,
                    second_order=None, warm_start=None, device=None):
-    """Block-coordinate estimation over parameter groups, for the Kalman
-    and score-driven families.
+    """Block-coordinate estimation over parameter groups, for the Kalman,
+    score-driven and static families.
 
     The control flow of the JAX package: for a score-driven spec the
     initialization grid replaces the starts by its best candidate (a Kalman
@@ -556,7 +578,8 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
     iteration optimizes every group embedded in the full vector — the
     closed-form (δ, Φ) solve where it applies, Nelder–Mead with every
     candidate batch one value-kernel call otherwise (K1 for a Kalman spec,
-    K4 for a score-driven one) — all starts in lockstep, until the loss
+    K4 for a score-driven one, the batched static loss for a static one) —
+    all starts in lockstep, until the loss
     moves by less than ``tol``.  An objective that is non-finite everywhere
     on the first group optimization raises; later, the start's group loop
     stops.  The winner is re-evaluated by the family's plain engine
@@ -565,8 +588,6 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
 
     Returns (init_params, ll, best_params, Convergence(converged,
     iterations)) for the winning start, as numpy arrays."""
-    if not (spec.is_kalman or spec.is_msed):
-        raise _not_ported(f"estimate_steps for family {spec.family!r}", "static")
     if checkpoint is not None:
         raise _not_ported("checkpointed estimate_steps", "checkpoint")
     _check_unported_knobs(second_order, warm_start)
@@ -585,8 +606,9 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
     for g in group_ids:
         kind, _ = _optimizer_for_group(g, table)
         if g != "-1" and inds_by_group[g] and not closed_ok[g] and kind != "neldermead":
-            raise _not_ported(f"the {kind!r} optimizer of group {g!r}",
-                              "vmap" if spec.is_kalman else "second_order_ad")
+            raise _not_ported(f"the {kind!r} optimizer of group {g!r} of "
+                              f"family {spec.family!r}",
+                              "second_order_ad" if spec.is_msed else "vmap")
 
     with torch.no_grad():
         all_params = np.asarray(all_params, dtype=np.float64)

@@ -39,11 +39,13 @@ from .models.params import transform_params, untransform_params
 from .models.specs import ModelSpec
 from .orchestration import chaos
 from .orchestration.checkpoint import WindowCheckpoint
+from .orchestration.retry import SentinelFailure
 from .parallel.multihost import sweep_stale_locks
 from .persistence import database as db
 from .persistence.io import _np
 from .persistence.locks import (acquire_task_lock, break_stale_lock,
                                 release_task_lock, task_lock_path)
+from .robustness import taxonomy
 from .utils.profiling import StageTimer
 
 
@@ -110,13 +112,12 @@ def run_single_window_task(
 
     Idempotent by the artifact contract (re-running overwrites the same
     keyed row).  ``sentinel_policy="save"`` persists a non-finite loss as
-    NULL, as the reference does; ``"retry"`` needs the taxonomy's
-    ``diagnose``, which is not ported yet.  ``checkpoint_root`` builds a
-    per-window checkpoint, which ``estimate_steps`` does not take yet."""
-    if sentinel_policy == "retry":
-        raise opt._not_ported("sentinel_policy='retry' (the sentinel "
-                              "diagnosis)", "diagnose")
-    if sentinel_policy != "save":
+    NULL, as the reference does; ``"retry"`` raises a ``SentinelFailure``
+    instead, its code the multi-start report's ladder code or else one
+    coded evaluation at the returned point (``taxonomy.diagnose``; 0 if
+    that fails too).  ``checkpoint_root`` builds a per-window checkpoint,
+    which ``estimate_steps`` does not take yet."""
+    if sentinel_policy not in ("save", "retry"):
         raise ValueError(f"sentinel_policy must be 'save' or 'retry'; "
                          f"got {sentinel_policy!r}")
     dev = config.resolve_device(device)
@@ -133,6 +134,19 @@ def run_single_window_task(
                 spec, data, task_id, cur, param_groups, max_group_iters,
                 group_tol, checkpoint=ckpt, second_order=second_order,
                 device=dev)
+        if sentinel_policy == "retry" and not np.isfinite(loss):
+            code = 0
+            for t in opt.last_multistart_report().get("ladder", ()):
+                code |= int(t.get("code", 0))
+            if code == 0:
+                try:
+                    _, code = taxonomy.diagnose(spec, params, data, start=0,
+                                                end=task_id, device=dev)
+                except Exception:  # noqa: BLE001 — the diagnosis must not
+                    code = 0       # hide the original failure
+            raise SentinelFailure(
+                f"estimation for {window_type} window {task_id} returned a "
+                f"non-finite loss sentinel ({loss})", seam="estimate", code=code)
     else:
         params = db.read_params_from_db(spec, task_id, cur,
                                         window_type=window_type)[:, 0]

@@ -1,10 +1,10 @@
-"""Family-dispatch façade for the Kalman and score-driven families.
+"""Family-dispatch façade over the Kalman, score-driven and static filters.
 
 Counterpart of ``yieldfactormodels_jl_tpu/models/api.py``.  ``get_loss``,
 ``get_loss_array`` and ``predict`` take a spec, *constrained* parameters
 (one vector or a (..., n_params) batch) and an (N, T) panel.  Numpy input
 goes to ``device`` (``None`` means CUDA; see ``config.resolve_device``);
-tensors stay where they are.  The static families are not ported yet.
+tensors stay where they are.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import config
-from . import kalman, score_driven
+from . import kalman, score_driven, static_model
 from .specs import ModelSpec
 
 #: where each engine or family that is not ported yet comes from
@@ -21,7 +21,7 @@ _NOT_PORTED = {
     "slr": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
     "score_tree": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
 }
-_FAMILIES_ITEM = "ROADMAP.md Queue 1 item 6 (score-driven and static families)"
+_FAMILIES_ITEM = "ROADMAP.md Queue 1 item 6 (the rest of the score-driven families)"
 
 
 def _require_kalman(spec: ModelSpec):
@@ -33,12 +33,12 @@ def _require_kalman(spec: ModelSpec):
             f"{spec.family!r}; see {_FAMILIES_ITEM}")
 
 
-def _require_filtered(spec: ModelSpec):
-    """Refuse the static families, which are not ported yet."""
-    if not (spec.is_kalman or spec.is_msed):
-        raise NotImplementedError(
-            f"family {spec.family!r} is not ported to PyTorch yet; "
-            f"see {_FAMILIES_ITEM}")
+def _engine(spec: ModelSpec):
+    if spec.is_kalman:
+        return kalman
+    if spec.is_msed:
+        return score_driven
+    return static_model
 
 
 def _inputs(spec: ModelSpec, params, data, device):
@@ -65,8 +65,15 @@ def get_loss(spec: ModelSpec, params, data, start=0, end=None, K: int = 1,
     """The filter loss, shape ``params.shape[:-1]``: the Gaussian loglik of
     the Kalman families ("univariate" by default, "joint" or "sqrt"), the
     one-step-ahead −MSE of the score-driven families ("scan"; ``K`` filter
-    passes)."""
-    _require_filtered(spec)
+    passes) and of the static families, which have no engine to choose."""
+    if spec.is_static:
+        if engine is not None:
+            raise ValueError(
+                f"engine {engine!r} is not applicable to family "
+                f"{spec.family!r}; config.engines_for lists "
+                f"{config.engines_for(spec)}")
+        params, data = _inputs(spec, params, data, device)
+        return static_model.get_loss(spec, params, data, start, end, K)
     if spec.is_msed:
         name = engine or "scan"
         if name not in config.engines_for(spec):
@@ -98,22 +105,16 @@ def get_loss(spec: ModelSpec, params, data, start=0, end=None, K: int = 1,
 def get_loss_array(spec: ModelSpec, params, data, start=0, end=None, K: int = 1,
                    device=None):
     """Per-step one-step-ahead −MSE contributions (..., T−1) of the family's
-    filter (``kalman.get_loss_array``, ``score_driven.get_loss_array``)."""
-    _require_filtered(spec)
+    filter (``kalman``, ``score_driven`` or ``static_model``)."""
     params, data = _inputs(spec, params, data, device)
-    if spec.is_msed:
-        return score_driven.get_loss_array(spec, params, data, start, end, K)
-    return kalman.get_loss_array(spec, params, data, start, end, K)
+    return _engine(spec).get_loss_array(spec, params, data, start, end, K)
 
 
 def predict(spec: ModelSpec, params, data, device=None):
     """NaN-extended one-step-ahead prediction artifacts of the family's
-    filter (``kalman.predict``, ``score_driven.predict``)."""
-    _require_filtered(spec)
+    filter (``kalman``, ``score_driven`` or ``static_model``)."""
     params, data = _inputs(spec, params, data, device)
-    if spec.is_msed:
-        return score_driven.predict(spec, params, data)
-    return kalman.predict(spec, params, data)
+    return _engine(spec).predict(spec, params, data)
 
 
 def get_param_groups(spec: ModelSpec, param_groups=None):

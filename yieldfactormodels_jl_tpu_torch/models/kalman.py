@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..robustness import taxonomy as tax
 from .afns import afns_loadings, yield_adjustment
 from .loadings import LAMBDA_FLOOR, dns_lambda, dns_loadings, dns_slope_curvature
 from .params import KalmanParams, unpack_kalman
@@ -167,11 +168,16 @@ def _step(spec: ModelSpec, kp: KalmanParams, Z_const, d_const,
 
     logdet_F = 2.0 * torch.log(torch.diagonal(cho_safe, dim1=-2, dim2=-1)).sum(-1)
     ll = -0.5 * (logdet_F + (v * Fi_v).sum(-1) + N * _LOG_2PI)
+    # taxonomy bits: a failed innovation Cholesky is the joint form's non-PD
+    # failure, a non-finite ll behind a successful one a blown-up state
+    code = tax.bit(obs & ~cho_ok, tax.CHOL_BREAKDOWN) \
+        | tax.bit(obs & cho_ok & ~torch.isfinite(ll), tax.STATE_EXPLODED)
     ll = torch.where(obs & cho_ok, ll,
                      torch.where(obs, torch.full_like(ll, -math.inf),
                                  torch.zeros_like(ll)))
     outs = {"y_pred": y_pred, "v": v, "ll": ll, "beta_after": beta_next,
-            "Z2": Z[..., 1], "Z3": Z[..., 2]}
+            "Z2": Z[..., 1], "Z3": Z[..., 2], "obs": obs.expand(ll.shape),
+            "code": code}
     return KalmanState(beta_next, P_next), outs
 
 
@@ -207,6 +213,27 @@ def get_loss(spec: ModelSpec, params, data, start=0, end=None):
     total = torch.where(contrib, ll, torch.zeros_like(ll)).sum(-1)
     return torch.where(torch.isfinite(total), total,
                        torch.full_like(total, -math.inf))
+
+
+def get_loss_coded(spec: ModelSpec, params, data, start=0, end=None):
+    """``(loss, code)``: :func:`get_loss`'s value and the taxonomy bitmask of
+    the contributing steps (CHOL_BREAKDOWN, STATE_EXPLODED), with
+    TRANSFORM_OVERFLOW for non-finite parameters, MISSING_ALL_OBS when no
+    contributing step is observed, and STATE_EXPLODED for a −Inf loss
+    without another cause."""
+    T = data.shape[1]
+    if end is None:
+        end = T
+    _, _, outs = _scan_filter(spec, params, data, start, end)
+    contrib = loglik_contrib_mask(start, end, T, data.device)
+    ll = outs["ll"]
+    total = torch.where(contrib, ll, torch.zeros_like(ll)).sum(-1)
+    loss = torch.where(torch.isfinite(total), total, torch.full_like(total, -math.inf))
+    code = tax.params_code(params) \
+        | tax.combine(torch.where(contrib, outs["code"], torch.zeros_like(outs["code"]))) \
+        | tax.bit(~(contrib & outs["obs"]).any(-1), tax.MISSING_ALL_OBS)
+    code = code | tax.bit(~torch.isfinite(loss) & (code == 0), tax.STATE_EXPLODED)
+    return loss, code
 
 
 def get_loss_array(spec: ModelSpec, params, data, start=0, end=None, K: int = 1):

@@ -1,9 +1,9 @@
 """Flat-parameter unpacking, sharing, transforms and initialization.
 
-Counterpart of the Kalman and score-driven parts of
-``yieldfactormodels_jl_tpu/models/params.py``.  ``unpack_kalman`` and
-``unpack_msed`` build the structured ingredients from a flat *constrained*
-parameter tensor of shape (..., n_params); nothing is mutated.  The
+Counterpart of ``yieldfactormodels_jl_tpu/models/params.py``.
+``unpack_kalman``, ``unpack_msed`` and ``unpack_static`` build the
+structured ingredients from a flat *constrained* parameter tensor of shape
+(..., n_params); nothing is mutated.  The
 initialization helpers work on float64 numpy vectors, as in the JAX package.
 """
 
@@ -65,6 +65,13 @@ class MSEDParams(NamedTuple):
     nu: torch.Tensor               # (..., L) = (1 − B) ⊙ ω  (0 if random walk)
 
 
+class StaticParams(NamedTuple):
+    gamma: torch.Tensor            # (..., L)
+    delta: torch.Tensor            # (..., M)
+    Phi: torch.Tensor              # (..., M, M)
+    mu: torch.Tensor               # (..., M) = (I − Φ)δ
+
+
 class KalmanParams(NamedTuple):
     gamma: Optional[torch.Tensor]  # (..., n_lambdas) λ drivers (DNS/AFNS)
     obs_var: torch.Tensor          # (...,) measurement variance σ²
@@ -105,21 +112,51 @@ def unpack_msed(spec: ModelSpec, params) -> MSEDParams:
     return MSEDParams(A, B, omega, delta, Phi, mu, nu)
 
 
-#: where the initialization of the families that are not ported comes from
-_INIT_ITEM = "ROADMAP.md Queue 1 item 6 (the static families)"
+def unpack_static(spec: ModelSpec, params) -> StaticParams:
+    """γ, δ, Φ (filled column-major) and μ = (I − Φ)δ of the static
+    families and the random walk."""
+    M = spec.M
+    gamma = spec.slice(params, "gamma")
+    delta = spec.slice(params, "delta")
+    Phi = spec.slice(params, "phi").reshape(params.shape[:-1] + (M, M))
+    Phi = Phi.transpose(-1, -2)  # column-major vec -> matrix
+    mu = delta - (Phi @ delta.unsqueeze(-1)).squeeze(-1)
+    return StaticParams(gamma, delta, Phi, mu)
 
 
-def get_new_initial_params(spec: ModelSpec, params, trial: int):
-    """Trial-indexed initial proposal for a score-driven spec: the ``trial``-th
-    point of the A×B guess grid (``trial`` is 1-based, the grid walk depends
-    on it), or None once the grid is exhausted.  ``params`` (P,) float64."""
+def get_new_initial_params(spec: ModelSpec, params, trial: int,
+                           rng: np.random.Generator | None = None):
+    """Trial-indexed initial proposal (``trial`` is 1-based, the grid walk
+    depends on it), ``params`` (P,) float64:
+
+    - score-driven: the ``trial``-th point of the A×B guess grid, or None
+      once the grid is exhausted;
+    - static neural: a structured randn/10 draw of the 18 net weights (the
+      biases 0), the (δ, Φ) tail kept;
+    - static λ (and the random walk): the head jittered by U(−0.05, 0.05);
+    - Kalman: a standard normal redraw.
+
+    The draws come from ``rng``, by default ``np.random.default_rng(trial)``,
+    as in the JAX package."""
     if trial < 1:
         raise ValueError(f"trial is 1-based; got {trial}")
-    if not spec.is_msed:
-        raise NotImplementedError(
-            f"initial proposals for family {spec.family!r} are not ported "
-            f"to PyTorch yet; see {_INIT_ITEM}")
     params = np.asarray(params, dtype=np.float64).copy()
+    if rng is None:
+        rng = np.random.default_rng(trial)
+    if spec.family == "static_neural":
+        params[0:3] = rng.standard_normal(3) / 10
+        params[3:6] = 0.0
+        params[6:9] = rng.standard_normal(3) / 10
+        params[9:12] = rng.standard_normal(3) / 10
+        params[12:15] = 0.0
+        params[15:18] = rng.standard_normal(3) / 10
+        return params
+    if spec.is_static:
+        head = params.shape[0] - spec.M * (spec.M + 1)
+        params[:head] += rng.uniform(size=head) * 0.1 - 0.05
+        return params
+    if not spec.is_msed:
+        return rng.standard_normal(params.shape[0])
     num_A = len(spec.A_guesses)
     num_B = 0 if spec.random_walk else len(spec.B_guesses)
     u = spec.n_unique

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.linalg import ols_solve
+from ..robustness import taxonomy as tax
 from .common import partial_nan_poison, window_contributions
 from .loadings import dns_loadings, neural_loadings
 from .params import MSEDParams, unpack_msed
@@ -139,7 +140,10 @@ def _step(spec: ModelSpec, mp: MSEDParams, state: MSEDState, y, observed: bool):
            "Z2": Z_next[..., 1], "Z3": Z_next[..., 2],
            # pre-transition measurement β: on a fully observed window pure
            # OLS, independent of (δ, Φ) — what the closed-form solve uses
-           "beta_obs": beta_obs}
+           "beta_obs": beta_obs,
+           # taxonomy bits: a non-finite prediction on an observed step (an
+           # overflowed γ update, the partial-NaN poisoning) is STATE_EXPLODED
+           "code": tax.bit(obs & ~torch.isfinite(pred).all(-1), tax.STATE_EXPLODED)}
     return MSEDState(gamma_next, beta_next, ewma, count), out
 
 
@@ -186,6 +190,27 @@ def get_loss(spec: ModelSpec, params, data, start=0, end=None, K: int = 1):
     loss = _replay(spec, params, data, start, end, K).sum(-1) / spec.N / nobs / K
     return torch.where(torch.isfinite(loss), loss,
                        torch.full_like(loss, -float("inf")))
+
+
+def get_loss_coded(spec: ModelSpec, params, data, start=0, end=None):
+    """``(loss, code)``: :func:`get_loss` (K=1) and the taxonomy bitmask —
+    the steps' STATE_EXPLODED bits inside the window, TRANSFORM_OVERFLOW for
+    non-finite parameters, MISSING_ALL_OBS for a window without an observed
+    column, STATE_EXPLODED for a −Inf loss without another cause."""
+    T = data.shape[1]
+    if end is None:
+        end = T
+    _, _, outs = scan_filter(spec, params, data, start, end)
+    loss = window_contributions(outs["pred"], data, start, end).sum(-1) \
+        / spec.N / (end - start)
+    loss = torch.where(torch.isfinite(loss), loss, torch.full_like(loss, -float("inf")))
+    t_idx = torch.arange(T, device=data.device)
+    in_win = (t_idx >= start) & (t_idx < end)
+    code = outs["code"]
+    code = tax.params_code(params) \
+        | tax.combine(torch.where(in_win, code, torch.zeros_like(code))) \
+        | tax.bit(~(in_win & torch.isfinite(data[0])).any(), tax.MISSING_ALL_OBS)
+    return loss, code | tax.bit(~torch.isfinite(loss) & (code == 0), tax.STATE_EXPLODED)
 
 
 def get_loss_array(spec: ModelSpec, params, data, start=0, end=None, K: int = 1):

@@ -2,10 +2,13 @@
 
 Counterpart of ``yieldfactormodels_jl_tpu/robustness/taxonomy.py``: the same
 bits and names, so a code from either package decodes the same way.  The
-filters that report one (``ops/sqrt_kf.get_loss_coded``,
-``ops/particle.particle_filter_loglik(..., with_code=True)``) OR bits into an
-int32 tensor beside their loss, with a leading draw axis where the loss has
-one; nothing raises, and only driver code decodes a mask into names.
+filters that report one (the ``get_loss_coded`` of ``ops/univariate_kf``,
+``ops/sqrt_kf``, ``models/kalman``, ``models/score_driven`` and
+``models/static_model``, and ``ops/particle.particle_filter_loglik(...,
+with_code=True)``) OR bits into an int32 tensor beside their loss, with a
+leading draw axis where the loss has one; nothing raises, and only driver
+code decodes a mask into names (:func:`decode`, :func:`describe`,
+:func:`diagnose`).
 """
 
 from __future__ import annotations
@@ -85,3 +88,32 @@ def describe(code) -> str:
     """Log form: ``'NONPSD_INNOVATION|CHOL_BREAKDOWN'`` or ``'OK'``."""
     names = decode(code)
     return "|".join(names) if names else "OK"
+
+
+def coded_loss_fn(spec):
+    """The family's coded loss: the univariate engine's for a Kalman spec,
+    the score-driven or static filter's otherwise."""
+    from ..models import score_driven, static_model
+    from ..ops import univariate_kf
+
+    if spec.is_kalman:
+        return univariate_kf.get_loss_coded
+    if spec.is_msed:
+        return score_driven.get_loss_coded
+    return static_model.get_loss_coded
+
+
+def diagnose(spec, params, data, start=0, end=None, device=None):
+    """One coded evaluation at CONSTRAINED ``params`` — "why did this start
+    die?".  Numpy input goes to ``device`` (``None`` means CUDA; tensors
+    stay where they are), in the spec's float type.  Returns ``(loglik,
+    code)`` as Python scalars."""
+    from .. import config
+
+    params = config.as_tensor(params, device, spec.dtype)
+    data = config.as_tensor(data, params.device, spec.dtype)
+    if end is None:
+        end = int(data.shape[1])
+    with torch.no_grad():
+        ll, code = coded_loss_fn(spec)(spec, params, data, start, end)
+    return float(ll), int(code)

@@ -12,10 +12,13 @@ and float32 by default, as the reference hard-codes.
 
 ``run`` takes ``device=`` (``None`` means CUDA; ``config.resolve_device``):
 every estimation, filter and forecast runs there; without a card only
-``device="cpu"`` runs, on the kernels' plain versions.  The Kalman and
-score-driven families run; the static families, the leased-queue driver
-(``orchestrated=True``) and the Newton polish (``second_order``) are not
-ported yet and raise, naming their ROADMAP items.
+``device="cpu"`` runs, on the kernels' plain versions.  The Kalman,
+score-driven and static families run, so the reference's warm-start
+cascade does: ``run("NS")`` writes the in-sample parameters and the merged
+window databases that ``run("SD-NS")`` starts from.  What is not ported
+raises, naming its ROADMAP item: the random walk's fits ("RW", whose (δ, Φ)
+group needs the per-start L-BFGS), the leased-queue driver
+(``orchestrated=True``) and the Newton polish (``second_order``).
 """
 
 from __future__ import annotations
@@ -164,8 +167,6 @@ def run(
         results_location=os.path.join(results_location, model_type) + os.sep)
     if spec is None:  # pC / vanillaNN placeholders
         return None
-    if not (spec.is_kalman or spec.is_msed):
-        raise opt._not_ported(f"run() for family {spec.family!r}", "static")
 
     param_groups = list(api.get_param_groups(spec, list(param_groups) or None))
     all_params = load_initial_parameters(spec, model_type, float_type,
