@@ -2,14 +2,16 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, run its main
 path, hold every kernel against its plain PyTorch version, and time it.
 
-    python3 chip_smoke.py [--json PATH] [--only kalman,ssd,sv,run,cascade]
+    python3 chip_smoke.py [--json PATH] [--only kalman,ssd,sv,run,cascade,grad]
                                           # from the repository root; one CUDA card
 
 ``--only`` runs the build and the named phase groups alone (kalman: [2]–[8],
-ssd: [9]–[11], sv: [12]–[14], run: [15], cascade: [16]); the kernels line
-then holds their kernels.
+ssd: [9]–[11], sv: [12]–[14], run: [15], cascade: [16], grad: [17]); the
+kernels line then holds their kernels.
 
-Phases (any failure raises and the script exits non-zero):
+Phases (any failure raises and the script exits non-zero; a phase also
+fails where a fit's trust-but-verify re-evaluation falls back to the plain
+engines):
 
 1. build   — compile every kernel source with nvcc (sm_90a), all at once;
    wait for the library the first phase launches (K1's for [2]); every
@@ -264,6 +266,35 @@ Phases (any failure raises and the script exits non-zero):
     of the SD-NS wall; then K4 on the in-sample grid and the fitted point
     (B=32) against its plain versions ([9]'s criterion), and at B=1 (the
     Nelder–Mead batch) timed beside its plain version and its bound.
+17. the gradient groups — the estimation paths that take gradients outside
+    the fused Kalman kernels, at N=20 on [15]'s panel with its first column
+    NaN (a transition-only step: the closed-form (δ, Φ) solve does not
+    apply, and the loss stays finite; a NaN column further in is a target
+    and makes every loss −Inf).  (a) "SD-NS" ``estimate_steps`` at T=360,
+    float32, from [16]'s SD-NS start: the grid, 1 group iteration of the
+    default table — group "1" by Nelder–Mead on K4, group "2" by the
+    batched L-BFGS whose Armijo probes are K4 launches and whose gradients
+    are value-and-gradient passes of the scan through the inner score,
+    capped at ``GRAD_LBFGS_ITERS`` iterations — with the launch counts set
+    to 0 just before it: K4 ≥ 1, its plain version 0; the ll at or above
+    the start's (after the grid, by K4); the wall by stage, the gradient
+    passes counted, K4's share and theirs.  The same call in float64 at
+    T=``GRAD_F64_T`` with group "2" capped at ``GRAD_F64_ITERS``, on the
+    card and on the CPU: the same iterations of every group, the ll within
+    rtol 1e-6.  (b) ``estimate("1C", objective="vmap")`` at T=``T_EDGE``,
+    ``GRAD_VMAP_STARTS`` stationary starts, ``GRAD_VMAP_ITERS`` iterations
+    (each start's own L-BFGS on the plain univariate engine; K1 never
+    launched): every start at or above its start's ll, the winner within
+    rtol 1e-4 of the plain float64 loss on the CPU.  (c) ``run("1", 360,
+    12, True, "RW", "float32")`` with 1 origin in a temporary directory: the
+    random walk's (δ, Φ) group by the per-start L-BFGS; every static loss
+    evaluation on CUDA tensors, the artifacts present and finite; then
+    ``GRAD_ADAM_ITERS`` Adam iterations on the static "NS" group "1" in
+    float64 on the card and on the CPU: every iterate within rtol 1e-9.
+    (a)'s and (c)'s parameter hashes, (c)'s forecast CSV's hash and (a)'s
+    K4 launches equal ``GRAD_FITS``.  Then K4 on (a)'s grid and
+    fitted point (B=32) against its plain versions ([9]'s criterion), and
+    at B=1 (the Armijo probe) timed beside its plain version and its bound.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON object {"kernels": [...]} with each kernel's launches on the
@@ -1752,14 +1783,19 @@ def _nvcc_path():
 def timed_estimate_steps(optimize, fused_ssd):
     """Time the phases of ``estimate_steps`` inside the block: the grid
     (``try_initializations``), the Nelder–Mead groups, the closed-form
-    groups and the trust-but-verify re-evaluation, each by its wall after a
-    synchronize; and K4's device time, from CUDA events around every launch
-    (with its batch size and the phase it ran in).  Yields the dict that
-    fills in."""
+    groups, the batched L-BFGS groups, the value-and-gradient passes of the
+    plain engines (``_values_and_grads``, counted; inside the L-BFGS groups)
+    and the trust-but-verify re-evaluation, each by its wall after a
+    synchronize; the iterations of every Nelder–Mead and L-BFGS group; and
+    K4's device time, from CUDA events around every launch (with its batch
+    size and the phase it ran in).  Yields the dict that fills in."""
     acc = {"grid_s": 0.0, "neldermead_s": 0.0, "closed_s": 0.0, "verify_s": 0.0,
-           "k4_events": [], "grid_winner": None, "active": "other"}
+           "lbfgs_s": 0.0, "grad_s": 0.0, "grad_passes": 0, "nm_iters": [],
+           "lbfgs_iters": [], "k4_events": [], "grid_winner": None, "active": "other"}
     names = {"try_initializations": "grid_s", "_neldermead_group": "neldermead_s",
-             "_msed_closed_group": "closed_s", "_trust_but_verify": "verify_s"}
+             "_msed_closed_group": "closed_s", "_falls_back": "verify_s",
+             "batched_lbfgs": "lbfgs_s", "_values_and_grads": "grad_s",
+             "nelder_mead_batched": None}
     saved = {name: getattr(optimize, name) for name in names}
     launch = fused_ssd.launch
 
@@ -1767,13 +1803,21 @@ def timed_estimate_steps(optimize, fused_ssd):
         def run(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            acc["active"] = names[name]
+            outer = acc["active"]
+            acc["active"] = names[name] or outer
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            acc["active"] = "other"
-            acc[names[name]] += time.perf_counter() - t0
+            acc["active"] = outer
+            if names[name]:
+                acc[names[name]] += time.perf_counter() - t0
             if name == "try_initializations":
                 acc["grid_winner"] = out
+            elif name == "_values_and_grads":
+                acc["grad_passes"] += 1
+            elif name == "batched_lbfgs":
+                acc["lbfgs_iters"].append(out.iters.tolist())
+            elif name == "nelder_mead_batched":
+                acc["nm_iters"].append(out[2].tolist())
             return out
         return run
 
@@ -3178,6 +3222,17 @@ def kalman_phases(yfm, dev, report):
 K4_TOLS = {torch.float64: (1e-6, 1e-15), torch.float32: (2e-2, 1e-7)}
 
 
+def k4_by_phase(events):
+    """K4's device seconds and launches by phase, and its launches by batch
+    size."""
+    dev_s, n_phase, by_batch = {}, {}, {}
+    for B, phase, e0, e1 in events:
+        dev_s[phase] = dev_s.get(phase, 0.0) + e0.elapsed_time(e1) / 1e3
+        n_phase[phase] = n_phase.get(phase, 0) + 1
+        by_batch[B] = by_batch.get(B, 0) + 1
+    return dev_s, n_phase, by_batch
+
+
 def hold_k4_counted(k4_counts, what, s64, p64, data64, start=0, end=None, expect_all_inf=False):
     """K4 in both types against the plain versions on the draws each type
     determines (float32 also against the plain float64), the counts kept in
@@ -3357,10 +3412,7 @@ def ssd_phases(yfm, dev, report):
         wall6 = time.perf_counter() - t0
         k4_launches = fused_ssd.batched_loss.launches
         plain_calls = [fn.calls for fn in plain_counters]
-    by_batch, k4_dev_s = {}, {}
-    for B, phase, e0, e1 in phases["k4_events"]:
-        k4_dev_s[phase] = k4_dev_s.get(phase, 0.0) + e0.elapsed_time(e1) / 1e3
-        by_batch[B] = by_batch.get(B, 0) + 1
+    k4_dev_s, _, by_batch = k4_by_phase(phases["k4_events"])
     k4_total_s = sum(k4_dev_s.values())
     print(f"  main path: K4 launches {k4_launches} (by batch size {by_batch}), "
           f"plain-version calls {plain_calls}")
@@ -3445,20 +3497,20 @@ def _chdir(path):
         os.chdir(old)
 
 
-def write_run_inputs(root, panel, p0):
+def write_run_inputs(root, panel, p0, code="1C"):
     """The reference's data, maturity and initial-parameter CSVs for thread
-    "1" and "1C" under ``root`` (the initial parameters relative to it, where
-    ``load_initial_parameters`` reads them with ``root`` as the working
+    "1" and ``code`` under ``root`` (the initial parameters relative to it,
+    where ``load_initial_parameters`` reads them with ``root`` as the working
     directory)."""
     data_dir = os.path.join(root, "YieldFactorModels.jl", "data")
-    init_dir = os.path.join(root, "YieldFactorModels.jl", "initializations", "1C")
+    init_dir = os.path.join(root, "YieldFactorModels.jl", "initializations", code)
     os.makedirs(data_dir)
     os.makedirs(init_dir)
     np.savetxt(os.path.join(data_dir, "thread_id__1__data.csv"), panel, delimiter=",")
     np.savetxt(os.path.join(data_dir, "thread_id__1__maturities.csv"), MATURITIES,
                delimiter=",")
-    np.savetxt(os.path.join(init_dir, "init_params_1C.csv"), p0, delimiter=",")
-    return os.path.join(root, "YieldFactorModels.jl", "results", "thread_id__1", "1C")
+    np.savetxt(os.path.join(init_dir, f"init_params_{code}.csv"), p0, delimiter=",")
+    return os.path.join(root, "YieldFactorModels.jl", "results", "thread_id__1", code)
 
 
 @contextlib.contextmanager
@@ -3971,10 +4023,7 @@ def cascade_phases(yfm, dev, report):
     print("  SD-NS starts: the in-sample tail is NS's out-params, each origin's NS's "
           "merged-DB row for its task, bit for bit")
 
-    by_batch, k4_dev_s = {}, {}
-    for B, phase, e0, e1 in k4_events:
-        k4_dev_s[phase] = k4_dev_s.get(phase, 0.0) + e0.elapsed_time(e1) / 1e3
-        by_batch[B] = by_batch.get(B, 0) + 1
+    k4_dev_s, _, by_batch = k4_by_phase(k4_events)
     k4_s = sum(k4_dev_s.values())
     for code in ("NS", "SD-NS"):
         print(f'  run("{code}"): wall {walls[code]:.2f} s; fits (end, start ll → ll): '
@@ -4029,10 +4078,273 @@ def cascade_phases(yfm, dev, report):
              "launches_by_batch": by_batch}]
 
 
-PHASE_GROUPS = ("kalman", "ssd", "sv", "run", "cascade")
+# ---- the gradient groups: phase 17 ----------------------------------------------
+
+#: [17]'s results on an H100: the first 16 hex digits of the sha256 of (a)'s
+#: "SD-NS" best parameters and (c)'s "RW" in-sample parameters (float64
+#: bytes) and of (c)'s expanding-window forecast CSV (its bytes), and K4's
+#: launches in (a); [17] must repeat them bit for bit (recorded on an NVIDIA
+#: H100 80GB HBM3)
+GRAD_FITS = {"sdns_params_sha256": "21841b52f80d7cce", "rw_params_sha256": "195429b258956ae1",
+             "rw_forecasts_sha256": "3b04855969602f67", "K4": 194}
+
+#: [17]'s budgets.  (a) runs the reference's default table at 1 group
+#: iteration ([11]'s depth) with group "2" L-BFGS capped at
+#: ``GRAD_LBFGS_ITERS`` iterations (the reference's 250: each iteration
+#: takes one value-and-gradient pass of the score-driven scan through the
+#: inner score, ≈2.5 s a pass at T=360 on an H100), and its float64 repeat
+#: on the card and the CPU at T=``GRAD_F64_T`` with group "2" capped at
+#: ``GRAD_F64_ITERS``; (b) runs ``GRAD_VMAP_ITERS`` L-BFGS iteration (the
+#: reference's 1,000; 3 took (b) to 38 s, its value-and-gradient passes
+#: ≈2.9 s each on the univariate engine at T=120) from ``GRAD_VMAP_STARTS``
+#: starts; (c)'s Adam check runs ``GRAD_ADAM_ITERS`` iterations
+GRAD_LBFGS_ITERS = 3
+GRAD_F64_T, GRAD_F64_ITERS = 60, 3
+GRAD_VMAP_STARTS, GRAD_VMAP_ITERS = 4, 1
+GRAD_ADAM_ITERS = 50
+
+
+def capped_table(optimize, iters):
+    """The default group table with group "2"'s L-BFGS capped at ``iters``."""
+    table = dict(optimize.DEFAULT_OPTIMIZERS)
+    kind, opts = table["2"]
+    table["2"] = (kind, dict(opts, max_iters=iters))
+    return table
+
+
+@contextlib.contextmanager
+def recorded_iterates(optimize):
+    """Inside the block, every point at which a value-and-gradient pass of a
+    plain engine ran (float64 on the host); yields the list."""
+    seen, vag = [], optimize._values_and_grads
+
+    def recording(objective, X):
+        seen.append(X.detach().double().cpu().clone())
+        return vag(objective, X)
+
+    optimize._values_and_grads = recording
+    try:
+        yield seen
+    finally:
+        optimize._values_and_grads = vag
+
+
+def grad_phases(yfm, dev, report):
+    """Phase 17: the estimation paths that take gradients outside the fused
+    Kalman kernels, on the card — (a) "SD-NS" ``estimate_steps`` off the
+    closed form (group "2" by the batched L-BFGS whose Armijo probes are K4
+    launches and whose gradients come from the scan through the inner
+    score), (b) ``estimate("1C", objective="vmap")`` (each start's own
+    L-BFGS on the plain univariate engine), (c) ``run("RW")`` (the random
+    walk's (δ, Φ) group by the per-start L-BFGS on the static loss) and Adam
+    on a static group.  Returns the kernels line's entry for K4 on (a)."""
+    import tempfile
+
+    from yieldfactormodels_jl_tpu_torch.estimation import optimize
+    from yieldfactormodels_jl_tpu_torch.models import static_model
+    from yieldfactormodels_jl_tpu_torch.ops import fused_kf, fused_ssd
+    from yieldfactormodels_jl_tpu_torch.utils.profiling import StageTimer
+
+    f32, f64 = torch.float32, torch.float64
+    begin_phase(f'[17] the gradient groups: "SD-NS" estimate_steps off the closed form, '
+                f'estimate("1C", objective="vmap"), run("RW"); N={N_MATURITIES}')
+    panel = make_dns_panel(seed=21)
+    # a missing first column: a transition-only step, so the closed form
+    # does not apply while the loss stays finite (a NaN column after the
+    # window's first step is a target, and every loss is −Inf)
+    gapped = panel.copy()
+    gapped[:, 0] = np.nan
+    s32, _ = yfm.create_model("SD-NS", MATURITIES)
+    s64, _ = yfm.create_model("SD-NS", MATURITIES, float_type="float64")
+    groups = yfm.get_param_groups(s32)
+    start = np.asarray(CASCADE_SD_START)[:, None]
+
+    # ---- (a) "SD-NS" estimate_steps, float32, T=360 -------------------------------
+    with timed_estimate_steps(optimize, fused_ssd) as ph:
+        fused_ssd.batched_loss.launches = 0
+        fused_ssd.batched_loss_reference.calls = 0
+        t0 = time.perf_counter()
+        _, ll_a, best_a, conv_a = yfm.estimate_steps(
+            s32, gapped, start, groups, max_group_iters=1,
+            optimizers=capped_table(optimize, GRAD_LBFGS_ITERS))
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        k4_a, k4_plain_a = fused_ssd.batched_loss.launches, fused_ssd.batched_loss_reference.calls
+    check(k4_a >= 1 and k4_plain_a == 0,
+          f"(a): K4 launches {k4_a}, plain-version calls {k4_plain_a}")
+    check(len(ph["lbfgs_iters"]) == 1 and ph["grad_passes"] >= 1,
+          f"(a): group \"2\" did not run the batched L-BFGS: {ph['lbfgs_iters']}")
+    g32 = torch.as_tensor(gapped, device=dev, dtype=f32)
+    x0 = optimize._sanitize(yfm.untransform_params(
+        s64, torch.as_tensor(ph["grid_winner"][:, 0])).numpy())
+    ll_start = float(optimize._batch_loss(
+        s32, yfm.transform_params(s32, torch.as_tensor(x0, device=dev, dtype=f32))[None],
+        g32, 0, T_MONTHS)[0])
+    check(math.isfinite(ll_a) and ll_a >= ll_start,
+          f"(a): ll {ll_a} below the start's {ll_start}")
+    k4_dev_s, k4_phases, k4_batches = k4_by_phase(ph["k4_events"])
+    check(k4_phases.get("lbfgs_s", 0) >= 1,
+          f"(a): no Armijo probe of the L-BFGS group launched K4: {k4_phases}")
+    k4_s = sum(k4_dev_s.values())
+    other_s = wall_a - ph["grid_s"] - ph["neldermead_s"] - ph["lbfgs_s"] - ph["verify_s"]
+    print(f"  (a) SD-NS, T={T_MONTHS}, NaN first column, float32: ll {ll_start!r} → {ll_a!r}, "
+          f"{conv_a}; Nelder–Mead iterations {ph['nm_iters']}, L-BFGS iterations "
+          f"{ph['lbfgs_iters']} (cap {GRAD_LBFGS_ITERS})")
+    print(f"    wall {wall_a:.2f} s: grid {ph['grid_s']:.2f} s, Nelder–Mead "
+          f"{ph['neldermead_s']:.2f} s, L-BFGS {ph['lbfgs_s']:.2f} s (of which "
+          f"{ph['grad_passes']} scan value-and-gradient passes {ph['grad_s']:.2f} s, "
+          f"{ph['grad_s'] / ph['grad_passes']:.2f} s a pass), trust-but-verify "
+          f"{ph['verify_s']:.2f} s, other {other_s:.2f} s")
+    print(f"    K4 launches {k4_a} by batch size {dict(sorted(k4_batches.items()))}, by "
+          f"phase {k4_phases}, on the card {k4_s:.3f} s ({100 * k4_s / wall_a:.2f}% of the "
+          f"wall; in the L-BFGS probes {k4_dev_s.get('lbfgs_s', 0.0):.3f} s); gradient "
+          f"passes {100 * ph['grad_s'] / wall_a:.1f}% of the wall")
+
+    # ---- (a) in float64 at T=GRAD_F64_T, the card against the CPU ------------------
+    cut = gapped[:, :GRAD_F64_T]
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        with timed_estimate_steps(optimize, fused_ssd) as ph64:
+            t0 = time.perf_counter()
+            out = yfm.estimate_steps(s64, cut, start, groups, max_group_iters=1,
+                                     optimizers=capped_table(optimize, GRAD_F64_ITERS),
+                                     device=where)
+            torch.cuda.synchronize()
+            runs.append((out, ph64["nm_iters"], ph64["lbfgs_iters"], ph64["grad_passes"],
+                         time.perf_counter() - t0))
+    ((_, ll_g, best_g, conv_g), nm_g, lb_g, passes_g, wall_g), \
+        ((_, ll_c, best_c, conv_c), nm_c, lb_c, passes_c, wall_c) = runs
+    check(tuple(conv_g) == tuple(conv_c) and nm_g == nm_c and lb_g == lb_c,
+          f"(a) float64: iterations differ, card {conv_g} {nm_g} {lb_g}, CPU {conv_c} "
+          f"{nm_c} {lb_c}")
+    check(abs(ll_g - ll_c) <= 1e-6 * abs(ll_c),
+          f"(a) float64: ll on the card {ll_g!r}, on the CPU {ll_c!r}")
+    print(f"  (a) float64, T={GRAD_F64_T}, group \"2\" capped at {GRAD_F64_ITERS}: card ll "
+          f"{ll_g!r} ({wall_g:.2f} s, {passes_g} gradient passes), CPU {ll_c!r} "
+          f"({wall_c:.2f} s); Nelder–Mead iterations {nm_g}, L-BFGS {lb_g} on both")
+
+    # ---- (b) estimate("1C", objective="vmap") at T=T_EDGE ------------------------
+    c32, _ = yfm.create_model("1C", MATURITIES)
+    c64, _ = yfm.create_model("1C", MATURITIES, float_type="float64")
+    starts_b = kalman_draws(c64, GRAD_VMAP_STARTS, np.random.default_rng(23), RUN_DELTA)
+    pan_b = torch.as_tensor(panel[:, :T_EDGE], device=dev, dtype=f32)
+    X0 = yfm.untransform_params(c64, torch.as_tensor(starts_b))
+    ll_b0 = -optimize._finite_objective(c32, pan_b, X0.to(dev, f32), 0, T_EDGE)
+    with timed_estimate_steps(optimize, fused_ssd) as phb:
+        fused_kf.batched_loglik.launches = 0
+        t0 = time.perf_counter()
+        _, ll_b, best_b, conv_b = yfm.estimate(c32, pan_b, starts_b.T,
+                                               max_iters=GRAD_VMAP_ITERS, objective="vmap")
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        k1_b = fused_kf.batched_loglik.launches
+    rep_b = yfm.last_multistart_report()
+    check(k1_b == 0, f"(b): the vmap objective launched K1 {k1_b} times")
+    lls_b = np.asarray(rep_b["lls"])
+    check(bool((lls_b >= ll_b0.double().cpu().numpy()).all()),
+          f"(b): a start ended below its start: {lls_b} vs {ll_b0.tolist()}")
+    ll_b_cpu = float(yfm.get_loss(c64, best_b, panel[:, :T_EDGE].astype(np.float32), 0,
+                                  T_EDGE, device="cpu"))
+    check(abs(ll_b - ll_b_cpu) <= 1e-4 * abs(ll_b_cpu),
+          f"(b): winner's ll {ll_b!r} vs the plain float64 loss on the CPU {ll_b_cpu!r}")
+    print(f"  (b) 1C, T={T_EDGE}, {GRAD_VMAP_STARTS} starts, max_iters {GRAD_VMAP_ITERS}: "
+          f"lls {ll_b0.tolist()} → {lls_b.tolist()}, iterations {rep_b['iters']}, winner "
+          f"{rep_b['best']} (plain f64 on the CPU {ll_b_cpu!r}); wall {wall_b:.2f} s, "
+          f"{phb['grad_passes']} value-and-gradient passes {phb['grad_s']:.2f} s")
+
+    # ---- (c) run("RW") and Adam on a static group --------------------------------
+    rw32, _ = yfm.create_model("RW", MATURITIES)
+    with tempfile.TemporaryDirectory(prefix="yfm_rw_") as root:
+        res_rw = write_run_inputs(root, panel, np.full(rw32.n_params, 0.5), code="RW")
+        timer = StageTimer()
+        with recorded_fits(optimize, static_model) as rec, _chdir(root), \
+                instrumented_run(yfm, timer, [], []), \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            _, params_c = yfm.run("1", T_MONTHS, RUN_H, True, "RW", "float32",
+                                  window_type="expanding", scratch_dir=root + os.sep)
+            torch.cuda.synchronize()
+            wall_rw = time.perf_counter() - t0
+        static_devices = dict(rec["static_devices"])
+        check(static_devices.get("cuda", 0) >= 1 and set(static_devices) == {"cuda"},
+              f'run("RW"): static loss evaluations by device {static_devices}')
+        check(len(rec["fits"]) == 2, f'run("RW"): {len(rec["fits"])} fits, not 2')
+        fc_rw = check_run_artifacts(res_rw, 'run("RW")', n_origins=1, code="RW",
+                                    t_in=T_MONTHS)
+        fc_sha = hashlib.sha256(open(fc_rw, "rb").read()).hexdigest()[:16]
+    print(f'  (c) run("RW"): wall {wall_rw:.2f} s, {static_devices} static loss '
+          f"evaluations by device; fits (end, ll) "
+          + ", ".join(f"({f['end']}, {f['ll']!r})" for f in rec["fits"]))
+    print("    wall by stage: " + ", ".join(
+        f"{k} {v['total']:.2f} s ({v['count']}×)" for k, v in timer.summary().items()))
+    ns64, _ = yfm.create_model("NS", MATURITIES, float_type="float64")
+    inds = tuple(i for i, g in enumerate(yfm.get_param_groups(ns64)) if g == "1")
+    x_ns = yfm.untransform_params(ns64, torch.as_tensor(CASCADE_NS_START, dtype=f64))[None]
+    adam = []
+    for where in (dev, torch.device("cpu")):
+        with recorded_iterates(optimize) as seen:
+            X, _ = optimize._group_opt_batched(
+                ns64, x_ns.to(where), inds, "adam", dict(max_iters=GRAD_ADAM_ITERS, lr=1e-3),
+                torch.as_tensor(panel, device=where, dtype=f64), 0, T_MONTHS)
+        adam.append((torch.stack(seen), X.cpu()))
+    (its_g, x_g), (its_c, x_c) = adam
+    check(its_g.shape[0] == GRAD_ADAM_ITERS,
+          f"Adam: {its_g.shape[0]} iterations, not {GRAD_ADAM_ITERS}")
+    close(its_g, its_c, 1e-9, 0.0, "Adam iterates card vs CPU")
+    close(x_g, x_c, 1e-9, 0.0, "Adam final point card vs CPU")
+    print(f'  Adam, NS group "1", float64, {GRAD_ADAM_ITERS} iterations: the card\'s iterates '
+          f"equal the CPU's at rtol 1e-9 (λ raw {float(its_c[0, 0, 0])!r} → "
+          f"{float(x_c[0, 0])!r})")
+
+    record = {"sdns_params_sha256": sha16(np.asarray(best_a, dtype=np.float64)),
+              "rw_params_sha256": sha16(np.asarray(params_c, dtype=np.float64)),
+              "rw_forecasts_sha256": fc_sha, "K4": k4_a}
+    print(f"  record: {json.dumps(record)}")
+
+    # K4 at (a)'s shapes against its plain versions: the grid around the
+    # start and the fitted point (B=32), then at B=1 (the Armijo probe)
+    g64 = torch.as_tensor(gapped, device=dev, dtype=f64)
+    draws = np.concatenate([ssd_draws(s64, start[:, 0], 31, seed=0),
+                            np.asarray(best_a, dtype=np.float64)[None]])
+    counts = {}
+    err = hold_k4_counted(counts, f"K4 B={draws.shape[0]}: SD-NS grid and fit, NaN first "
+                          f"column", s64, torch.as_tensor(draws, device=dev), g64, 0, T_MONTHS)
+    p1 = torch.as_tensor(best_a[None], device=dev, dtype=f32)
+    inputs = fused_ssd.kernel_inputs(s32, p1, g32, 0, T_MONTHS)
+    ms = cuda_ms(lambda: fused_ssd.launch(inputs), reps=20)
+    plain_ms, _ = timed_call(lambda: fused_ssd.batched_loss_reference(s32, p1, g32, 0,
+                                                                      T_MONTHS))
+    bound_ms, bound_by = bound(nbytes(*inputs.buffers, inputs.out), ssd_flops(s32, g32))
+    print(f"  K4 B=1 (the Armijo probe): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
+    report["grad"] = {
+        "a": {"wall_s": wall_a, "ll_start": ll_start, "ll": ll_a, "nm_iters": ph["nm_iters"],
+              "lbfgs_iters": ph["lbfgs_iters"], "grad_passes": ph["grad_passes"],
+              "grad_s": ph["grad_s"], "grid_s": ph["grid_s"],
+              "neldermead_s": ph["neldermead_s"], "lbfgs_s": ph["lbfgs_s"],
+              "verify_s": ph["verify_s"], "k4_launches": k4_a, "k4_by_batch": k4_batches,
+              "k4_by_phase": k4_phases, "k4_device_s": k4_dev_s},
+        "a_f64": {"ll_card": ll_g, "ll_cpu": ll_c, "wall_card_s": wall_g, "wall_cpu_s": wall_c,
+                  "nm_iters": nm_g, "lbfgs_iters": lb_g},
+        "b": {"wall_s": wall_b, "lls": lls_b.tolist(), "iters": rep_b["iters"],
+              "grad_passes": phb["grad_passes"], "grad_s": phb["grad_s"]},
+        "c": {"wall_s": wall_rw, "static_devices": static_devices,
+              "stages": timer.summary()},
+        "record": record, "k4_determined": counts}
+    check(GRAD_FITS == record, f"[17]: differs from the recorded {GRAD_FITS}")
+    print("  the recorded parameters, forecasts and K4 launches bit for bit")
+    return [{"name": "K4 fused_ssd in estimate_steps off the closed form", "route": "cuda",
+             "source": "yieldfactormodels_jl_tpu_torch/csrc/fused_ssd.cu",
+             "replaces": "yieldfactormodels_jl_tpu/ops/pallas_ssd.py:214",
+             "launches": k4_a, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "launches_by_batch": k4_batches}]
+
+
+PHASE_GROUPS = ("kalman", "ssd", "sv", "run", "cascade", "grad")
 #: the kernel library each phase group launches first
 FIRST_LIBRARY = {"kalman": "fused_kf", "ssd": "fused_ssd", "sv": "fused_pf",
-                 "run": "fused_kf", "cascade": "fused_ssd"}
+                 "run": "fused_kf", "cascade": "fused_ssd", "grad": "fused_ssd"}
 
 
 def main(json_path=None, only=PHASE_GROUPS) -> int:
@@ -4109,8 +4421,31 @@ def print_build_logs(names):
                 print(f"  {name}: {line.strip()}")
 
 
+@contextlib.contextmanager
+def no_plain_fallback(optimize):
+    """Fail the phase in which a trust-but-verify re-evaluation gives way to
+    the plain engines (``_falls_back`` returns True): a kernel-reported
+    optimum must agree with its plain re-evaluation, and no fit re-runs on
+    the plain engines."""
+    falls_back = optimize._falls_back
+
+    def guarded(tag, *a, **k):
+        out = falls_back(tag, *a, **k)
+        check(not out, f"{tag}: the kernels' optimum disagreed with its plain "
+                       f"re-evaluation and the fit fell back to the plain engines")
+        return out
+
+    optimize._falls_back = guarded
+    try:
+        yield
+    finally:
+        optimize._falls_back = falls_back
+
+
 def run_phase_groups(yfm, dev, report, only):
-    """Phases [2]–[16] of the groups in ``only``; returns the kernels line."""
+    """Phases [2]–[17] of the groups in ``only``; returns the kernels line.
+    A phase fails where a fit falls back to the plain engines."""
+    from yieldfactormodels_jl_tpu_torch.estimation import optimize
     from yieldfactormodels_jl_tpu_torch.ops import _build
 
     kernels = []
@@ -4119,7 +4454,8 @@ def run_phase_groups(yfm, dev, report, only):
         _build.load(name)
         prefetch_sass(pool, [_build._lib_path(name)])
 
-    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool, \
+            no_plain_fallback(optimize):
         if "kalman" in only:
             built("fused_kf")
             kernels += kalman_phases(yfm, dev, report)
@@ -4133,6 +4469,9 @@ def run_phase_groups(yfm, dev, report, only):
             kernels += run_phases(yfm, dev, report)
         if "cascade" in only:
             kernels += cascade_phases(yfm, dev, report)
+        if "grad" in only:
+            built("fused_ssd")
+            kernels += grad_phases(yfm, dev, report)
     return kernels
 
 
@@ -4145,7 +4484,7 @@ if __name__ == "__main__":
     ap.add_argument("--only", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups to run after the build: "
                          "kalman ([2]–[8]), ssd ([9]–[11]), sv ([12]–[14]), run "
-                         "([15]), cascade ([16]); all by default")
+                         "([15]), cascade ([16]), grad ([17]); all by default")
     args = ap.parse_args()
     only = tuple(args.only.split(","))
     if not set(only) <= set(PHASE_GROUPS):

@@ -20,6 +20,10 @@ JAX package, on the CPU (the kernels' plain versions run there).
   grid and the Nelder–Mead blocks run the plain scan, as JAX's run its
   vmapped scan; the same (15, 1) start matrix, and ``estimate_steps`` at
   the bar above.
+- The groups off the closed form run: "NS" with a NaN first column (group
+  "2" by the per-start L-BFGS; its ll JAX's loss at its optimum at rtol
+  1e-10), the random walk and "SD-NS" under ``YFM_MSED_CLOSED=0``
+  (tests/test_torch_per_start.py holds these groups against JAX's).
 """
 
 import dataclasses
@@ -154,24 +158,26 @@ def test_estimate_steps_refusals(yields_panel, monkeypatch):
     sd, _ = P.create_model("SD-NS", tuple(MATS), float_type="float64")
     p = oracle.stable_msed_params(sd)[:, None]
     groups = list(P.get_param_groups(sd))
-    # the static families run (tests/test_torch_cascade.py holds "NS" and
-    # "NNS" against JAX), but not their (δ, Φ) group off the closed form, nor
-    # the random walk, whose (δ, Φ) group never takes the closed form: both
-    # are the per-start L-BFGS of item 4
+    budgets = {"1": ("neldermead", dict(max_iters=2)),
+               "2": ("lbfgs", dict(max_iters=3, g_tol=1e-6, f_abstol=1e-6))}
+    # the static families' (δ, Φ) group off the closed form (a NaN first
+    # column: a transition-only step) runs the per-start L-BFGS, as JAX's
     ns, _ = P.create_model("NS", tuple(MATS), float_type="float64")
+    jns, _ = J.create_model("NS", tuple(MATS), float_type="float64")
     p_ns = oracle.stable_ns_params(ns, np.float64)[:, None]
-    _, ll, _, conv = P.estimate_steps(
-        ns, data, p_ns, P.get_param_groups(ns), max_group_iters=1,
-        optimizers={"1": ("neldermead", dict(max_iters=2))}, device=CPU)
-    assert np.isfinite(ll) and conv.iterations == 1
     gapped = data.copy()
-    gapped[:, 7] = np.nan
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.estimate_steps(ns, gapped, p_ns, P.get_param_groups(ns), device=CPU)
+    gapped[:, 0] = np.nan
+    ns_groups = list(P.get_param_groups(ns))
+    _, ll, best, conv = P.estimate_steps(ns, gapped, p_ns, ns_groups, max_group_iters=1,
+                                         optimizers=budgets, device=CPU)
+    assert conv.iterations == 1 and ll > float(P.get_loss(ns, p_ns[:, 0], gapped, device=CPU))
+    np.testing.assert_allclose(ll, float(J.get_loss(jns, best, gapped)), rtol=1e-10)
+    # and the random walk, whose (δ, Φ) group never takes the closed form
     rw, _ = P.create_model("RW", tuple(MATS), float_type="float64")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.estimate_steps(rw, data, np.zeros((rw.n_params, 1)), P.get_param_groups(rw),
-                         device=CPU)
+    _, ll, best, conv = P.estimate_steps(rw, data, np.full((rw.n_params, 1), 0.3),
+                                         P.get_param_groups(rw), max_group_iters=1,
+                                         optimizers=budgets, device=CPU)
+    assert np.isfinite(ll) and np.isfinite(best).all() and conv.iterations == 1
     # the Kalman families run (tests/test_torch_kalman_steps.py holds them
     # against JAX)
     c1, _ = P.create_model("1C", tuple(MATS), float_type="float64")
@@ -183,9 +189,12 @@ def test_estimate_steps_refusals(yields_panel, monkeypatch):
         P.estimate_steps(sd, data, p, groups, checkpoint=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="item 9"):
         P.estimate_steps(sd, data, p, groups, second_order="fisher", device=CPU)
-    monkeypatch.setenv("YFM_MSED_CLOSED", "0")  # group "2" falls to L-BFGS
-    with pytest.raises(NotImplementedError, match="second-order autograd"):
-        P.estimate_steps(sd, data, p, groups, device=CPU)
+    monkeypatch.setenv("YFM_MSED_CLOSED", "0")  # group "2" falls to L-BFGS on K4
+    calls = fused_ssd.batched_loss_reference.calls
+    _, ll, best, conv = P.estimate_steps(sd, data, p, groups, max_group_iters=1,
+                                         optimizers=budgets, device=CPU)
+    assert np.isfinite(ll) and np.isfinite(best).all() and conv.iterations == 1
+    assert fused_ssd.batched_loss_reference.calls > calls
     if not torch.cuda.is_available():
         monkeypatch.delenv("YFM_MSED_CLOSED")
         with pytest.raises(RuntimeError, match="CUDA is not available"):

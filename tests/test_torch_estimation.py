@@ -14,6 +14,13 @@ L-BFGS steps).
 against JAX ``estimate(objective="fused")`` in interpret mode at the tiny
 shape of test_fused_estimate_composition_interpret, both in float32: ll
 within rtol 1e-4 (float32 sums in another order).
+
+``estimate`` on "SD-NS" (which ``"auto"`` sends to ``objective="vmap"``)
+runs, its ll JAX's loss at its optimum at rtol 1e-10
+(tests/test_torch_per_start.py holds ``"vmap"`` and the score-driven
+gradient against JAX's).  A fused winner whose plain re-evaluation
+disagrees re-runs ``"vmap"`` (``estimate``, ``estimate_windows``) or the
+plain engines (``estimate_steps``) on the CPU, and raises on CUDA data.
 """
 
 import functools
@@ -30,6 +37,7 @@ import jax.numpy as jnp  # noqa: E402
 import yieldfactormodels_jl_tpu as J  # noqa: E402
 import yieldfactormodels_jl_tpu_torch as P  # noqa: E402
 from tests import oracle  # noqa: E402
+from tests.conftest import MATURITIES  # noqa: E402
 from yieldfactormodels_jl_tpu.estimation import optimize as jopt  # noqa: E402
 from yieldfactormodels_jl_tpu.estimation.batched_lbfgs import batched_lbfgs as jax_lbfgs  # noqa: E402
 from yieldfactormodels_jl_tpu_torch.estimation import optimize as topt  # noqa: E402
@@ -331,7 +339,6 @@ def _tiny(yields_panel):
 
 
 @pytest.mark.parametrize("kw,env,match", [
-    ({"objective": "vmap"}, {}, "Queue 1 item 4"),
     ({"objective": "time_sharded"}, {}, "Queue 1 item 10"),
     ({"second_order": True}, {}, "Newton polish"),
     ({}, {"YFM_NEWTON": "1"}, "Newton polish"),
@@ -348,7 +355,6 @@ def test_estimate_refuses_what_is_not_ported(kw, env, match, yields_panel, monke
 
 
 @pytest.mark.parametrize("kw,env,match", [
-    ({"objective": "vmap"}, {}, "Queue 1 item 4"),
     ({"objective": "time_sharded"}, {}, "Queue 1 item 10"),
     ({"second_order": True}, {}, "Newton polish"),
     ({}, {"YFM_NEWTON": "1"}, "Newton polish"),
@@ -374,26 +380,74 @@ def test_estimate_errors_and_device_rule(yields_panel):
     _, ll, _, _ = P.estimate(tvl, data, oracle.stable_tvl_params(tvl)[:, None],
                              max_iters=1, device=CPU)
     assert np.isfinite(ll)
-    ssd, _ = P.create_model("1SSD-NNS", ts.maturities)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        P.estimate(ssd, data, np.zeros((ssd.n_params, 1)), device=CPU)
+    # a score-driven spec runs the "vmap" objective ("auto"; "fused" is for
+    # the Kalman families): its gradient through the inner score, as JAX's
+    sd, _ = P.create_model("SD-NS", ts.maturities, float_type="float64")
+    jsd, _ = J.create_model("SD-NS", ts.maturities, float_type="float64")
+    with pytest.raises(ValueError, match="fused objective unavailable"):
+        P.estimate(sd, data, np.zeros((sd.n_params, 1)), objective="fused", device=CPU)
+    p_sd = oracle.stable_msed_params(sd)
+    data64 = data.astype(np.float64)
+    _, ll, best, conv = P.estimate(sd, data64, p_sd[:, None], max_iters=2, device=CPU)
+    assert conv.iterations == 2 and ll > float(P.get_loss(sd, p_sd, data64, device=CPU))
+    np.testing.assert_allclose(ll, float(J.get_loss(jsd, best, data64)), rtol=1e-10)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             P.estimate(ts, data, starts, max_iters=1)
 
 
 def test_trust_but_verify(yields_panel, monkeypatch, capsys):
-    """A winner whose plain-engine re-evaluation disagrees by more than 0.5%
-    raises under the default policy and only warns under
-    YFM_FUSED_CHECK=warn."""
+    """A kernel-reported winner whose plain-engine re-evaluation disagrees by
+    more than 0.5% (the fused kernels' value doubled) re-runs on the plain
+    engines under the default policy, as the JAX package does: ``estimate``
+    and ``estimate_windows`` give the ``objective="vmap"`` result and
+    ``estimate_steps`` its plain-engine run (``_force_scan``); under
+    YFM_FUSED_CHECK=warn the kernels' result stands with the stderr line."""
     ts, data, starts = _tiny(yields_panel)
-    monkeypatch.setattr(topt.api, "get_loss",
-                        lambda spec, p, d, s, e: 2 * fused_kf.batched_loglik_reference(
-                            spec, p[None], d, s, e)[0])
-    with pytest.raises(RuntimeError, match="disagrees with the plain engine"):
-        P.estimate(ts, data, starts, max_iters=1, device=CPU)
+    raw = P.untransform_params(ts, torch.tensor(starts.T)).numpy()
+    groups = P.get_param_groups(ts)
+    nm = {"1": ("neldermead", dict(max_iters=2))}
+    want = P.estimate(ts, data, starts, max_iters=1, objective="vmap", device=CPU)
+    want_w = P.estimate_windows(ts, data, raw, [0], [10], max_iters=1, objective="vmap",
+                                device=CPU)
+    want_s = P.estimate_steps(ts, data, starts, groups, max_group_iters=1, optimizers=nm,
+                              device=CPU, _force_scan=True)
+    diff, k1 = fused_kf_grad.batched_loglik_diff, fused_kf._batched_loglik
+    monkeypatch.setattr(fused_kf_grad, "batched_loglik_diff", lambda *a, **k: 2 * diff(*a, **k))
+    monkeypatch.setattr(fused_kf, "_batched_loglik", lambda *a, **k: 2 * k1(*a, **k))
+    got = P.estimate(ts, data, starts, max_iters=1, device=CPU)
     assert "fused-kernel optimum disagrees" in capsys.readouterr().err
+    assert got[1] == want[1] and np.array_equal(got[2], want[2]) and got[3] == want[3]
+    got_w = P.estimate_windows(ts, data, raw, [0], [10], max_iters=1, device=CPU)
+    assert np.array_equal(got_w[0], want_w[0]) and np.array_equal(got_w[1], want_w[1])
+    got_s = P.estimate_steps(ts, data, starts, groups, max_group_iters=1, optimizers=nm,
+                             device=CPU)
+    assert got_s[1] == want_s[1] and np.array_equal(got_s[2], want_s[2])
+    assert capsys.readouterr().err.count("fused-kernel optimum disagrees") == 2
     monkeypatch.setenv("YFM_FUSED_CHECK", "warn")
     _, ll, _, _ = P.estimate(ts, data, starts, max_iters=1, device=CPU)
-    assert np.isfinite(ll)
+    assert np.isfinite(ll) and abs(ll - 2 * want[1]) < 0.5 * abs(want[1])
     assert "YFM_FUSED_CHECK=warn" in capsys.readouterr().err
+
+
+def test_trust_but_verify_raises_on_the_card(yields_panel, monkeypatch, capsys):
+    """On CUDA data a disagreement under the default policy raises: no path
+    gives way to the plain engines on the card.  The plain re-evaluation is
+    patched to disagree, and the data stands in for a CUDA tensor."""
+    ts, _, starts = _tiny(yields_panel)
+    best = torch.as_tensor(starts[:, 0])
+    monkeypatch.setattr(topt.api, "get_loss", lambda *a, **k: torch.tensor(-10.0))
+
+    class OnTheCard:
+        is_cuda = True
+
+    with pytest.raises(RuntimeError, match="disagrees with the plain engine's -10.0 by "
+                                           "more than 0.5% on the card"):
+        topt._falls_back("estimate()", ts, best, -5.0, OnTheCard(), 0, 10)
+    monkeypatch.setattr(OnTheCard, "is_cuda", False)
+    assert topt._falls_back("estimate()", ts, best, -5.0, OnTheCard(), 0, 10)
+    assert not topt._falls_back("estimate()", ts, best, -10.01, OnTheCard(), 0, 10)
+    monkeypatch.setenv("YFM_FUSED_CHECK", "warn")
+    monkeypatch.setattr(OnTheCard, "is_cuda", True)
+    assert not topt._falls_back("estimate()", ts, best, -5.0, OnTheCard(), 0, 10)
+    assert capsys.readouterr().err.count("fused-kernel optimum disagrees") == 3

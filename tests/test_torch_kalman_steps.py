@@ -14,6 +14,10 @@ plain version, the batched univariate recursion, runs there).
   ``test_estimate_steps_matches_jax``.  Each Nelder–Mead candidate batch is
   one call of K1's plain version, and one call each gives the start's and
   the final ll.
+- An L-BFGS group on "1C" (every parameter, 3 iterations): the per-start
+  L-BFGS on the plain univariate engine runs; its ll is JAX's loss at its
+  optimum at rtol 1e-10 (tests/test_torch_per_start.py holds the
+  per-start L-BFGS on "1C" against JAX's).
 """
 
 import numpy as np
@@ -163,11 +167,18 @@ def test_estimate_steps_matches_jax(steps_refs, code, monkeypatch):
 
 
 def test_estimate_steps_kalman_refusals():
-    _, ts = _specs("1C")
+    """A Kalman group under L-BFGS runs the per-start L-BFGS on the plain
+    engine, as JAX's does; the checkpointed run is still refused."""
+    js, ts = _specs("1C")
     data, _ = _panels()
     p = _point(ts)[:, None]
     groups = list(P.get_param_groups(ts))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.estimate_steps(ts, data, p, groups, optimizers={"1": ("lbfgs", {})}, device=CPU)
+    lbfgs = {"1": ("lbfgs", dict(max_iters=3, g_tol=1e-6, f_abstol=1e-6))}
+    _, ll_t, best_t, conv_t = P.estimate_steps(ts, data, p, groups, max_group_iters=1,
+                                               optimizers=lbfgs, device=CPU)
+    assert conv_t.iterations == 1
+    assert ll_t > float(P.get_loss(ts, _point(ts), data, device=CPU))  # it moved
+    ll_j = jopt._jitted_loss(js, T)(best_t, data, 0, T)  # compiled by steps_refs
+    np.testing.assert_allclose(ll_t, float(ll_j), rtol=1e-10)
     with pytest.raises(NotImplementedError, match="item 11"):
         P.estimate_steps(ts, data, p, groups, checkpoint=object(), device=CPU)

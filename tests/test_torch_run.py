@@ -16,8 +16,14 @@ writes relative to it), from the same ``init_params_<code>.csv``:
   same parameters.
 - "1SSD-NNS" without optimization or re-estimation (the score-driven
   dispatch), the port alone, against its own score-driven filter.
-- The refusals ("RW"'s fit, item 4; "SD-NS" off the closed form, item 6)
-  and the random initial parameters written to disk.
+- "RW" with estimation (its (δ, Φ) group by the per-start L-BFGS),
+  in_sample_end 34, horizon 3, expanding windows, and "SD-NS" in-sample
+  under ``YFM_MSED_CLOSED=0`` (group "2" by L-BFGS on K4's plain version),
+  one group iteration and small budgets: both complete with finite
+  artifacts, the in-sample loss JAX's at the written parameters
+  (tests/test_torch_per_start.py holds those groups against JAX's).
+- The refusals (item 11, item 9) and the random initial parameters written
+  to disk.
 """
 
 import contextlib
@@ -38,7 +44,7 @@ from tests.test_score_driven import _neural_params  # noqa: E402
 from yieldfactormodels_jl_tpu.estimation import optimize as jopt  # noqa: E402
 from yieldfactormodels_jl_tpu.run import run as jrun  # noqa: E402
 from yieldfactormodels_jl_tpu_torch.estimation import optimize as topt  # noqa: E402
-from yieldfactormodels_jl_tpu_torch.ops import fused_kf, fused_kf_grad  # noqa: E402
+from yieldfactormodels_jl_tpu_torch.ops import fused_kf, fused_kf_grad, fused_ssd  # noqa: E402
 
 CPU = "cpu"
 MATS = tuple(MATS_MONTHS / 12.0)
@@ -65,6 +71,8 @@ def _start_point(code):
     spec, _ = J.create_model(code, MATS, float_type="float64")
     if code == "1C":
         return oracle.stable_1c_params(spec, np.float64)
+    if code == "RW":
+        return np.full(spec.n_params, 0.3)
     return _neural_params(spec, np.random.default_rng(7))[0]
 
 
@@ -242,15 +250,41 @@ def test_run_refusals_and_random_initial_parameters(tmp_path, monkeypatch):
         P.run("1", 30, 3, True, "1C", "float64", orchestrated=True, **kw)
     with pytest.raises(NotImplementedError, match="item 9"):
         P.run("1", 30, 3, True, "1C", "float64", second_order="fisher", **kw)
-    # "NS" runs (tests/test_torch_cascade.py holds its cascade into "SD-NS"
-    # against JAX); the random walk's fit is item 4's per-start L-BFGS, and a
-    # score-driven (δ, Φ) group off the closed form still needs item 6
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.run("1", 30, 3, True, "RW", "float64", **kw)
+    budgets = {"1": ("neldermead", dict(max_iters=10)),
+               "2": ("lbfgs", dict(max_iters=3, g_tol=1e-6, f_abstol=1e-6))}
+    data = np.loadtxt(os.path.join(scratch, "YieldFactorModels.jl", "data",
+                                   "thread_id__1__data.csv"), delimiter=",")
     with monkeypatch.context() as mp:
+        for g, entry in budgets.items():
+            mp.setitem(topt.DEFAULT_OPTIMIZERS, g, entry)
+        # the random walk's fits: its (δ, Φ) group by the per-start L-BFGS
+        init = os.path.join("YieldFactorModels.jl", "initializations", "RW")
+        os.makedirs(init)
+        np.savetxt(os.path.join(init, "init_params_RW.csv"), _start_point("RW"), delimiter=",")
+        spec, params = P.run("1", 34, 3, True, "RW", "float64", window_type="expanding",
+                             max_group_iters=1, **kw)
+        folder = spec.results_location
+        for kind in WINDOW_KINDS:
+            got = _csv(folder, "RW", f"expanding_window_{kind}")
+            assert np.isfinite(got).all() and got.shape[0] == (3 * 3 if kind != "fitted_params"
+                                                               else 3), kind
+        # a score-driven (δ, Φ) group off the closed form: L-BFGS on K4
         mp.setenv("YFM_MSED_CLOSED", "0")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            P.run("1", 30, 3, True, "SD-NS", "float64", **kw)
+        init = os.path.join("YieldFactorModels.jl", "initializations", "SD-NS")
+        os.makedirs(init)
+        sd, _ = P.create_model("SD-NS", MATS, float_type="float64")
+        np.savetxt(os.path.join(init, "init_params_SD-NS.csv"), oracle.stable_msed_params(sd),
+                   delimiter=",")
+        calls = fused_ssd.batched_loss_reference.calls
+        spec_sd, params_sd = P.run("1", 34, 3, False, "SD-NS", "float64", max_group_iters=1,
+                                   **kw)
+        assert fused_ssd.batched_loss_reference.calls > calls
+    for code, sp, p_fit in (("RW", spec, params), ("SD-NS", spec_sd, params_sd)):
+        for suffix in INSAMPLE:
+            assert np.isfinite(_csv(sp.results_location, code, suffix)).all(), (code, suffix)
+        js, _ = J.create_model(code, MATS, float_type="float64")
+        np.testing.assert_allclose(_csv(sp.results_location, code, "loss"),
+                                   float(J.get_loss(js, p_fit, data[:, :34])), rtol=1e-10)
     assert P.run("1", 30, 3, True, "pC", "float64", **kw) is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -17,7 +17,9 @@ maturities, T = 40.
   against ``tests/oracle.static_closed_delta_phi``; the random walk and a
   gapped window fall outside it.
 - The entry-point rules: an explicit ``engine=`` on a static spec is a
-  ValueError, as in JAX.
+  ValueError, as in JAX; ``estimate`` runs the per-start "vmap" objective
+  (tests/test_torch_per_start.py holds it against JAX's), its ll JAX's
+  loss at its optimum at rtol 1e-10.
 """
 
 import numpy as np
@@ -201,12 +203,14 @@ def test_closed_form_group_matches_jax_and_the_oracle(code):
 
 
 def test_static_entry_point_rules():
-    _, ts = _specs("NS")
+    js, ts = _specs("NS")
     p, d = static_params(ts), _panel()
     with pytest.raises(ValueError, match="not applicable"):
         P.get_loss(ts, p, d, engine="scan", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.estimate(ts, d, p[:, None], device=CPU)
+    _, ll, best, conv = P.estimate(ts, d, p[:, None], max_iters=3, device=CPU)
+    assert conv.iterations == 3 and ll > float(P.get_loss(ts, p, d, device=CPU))
+    np.testing.assert_allclose(ll, float(J.get_loss(js, best, d)), rtol=1e-10)
+    assert P.estimate(ts, d, p[:, None], max_iters=3, objective="vmap", device=CPU)[1] == ll
     assert P.get_loss(ts, p, d, K=3, device=CPU).shape == ()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

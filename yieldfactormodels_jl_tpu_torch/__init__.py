@@ -7,12 +7,15 @@ so far: model specs and the zoo registry, parameter transforms and
 unpacking, DNS/AFNS loadings, the Kalman log-likelihood (univariate and
 joint engines), ``predict`` and ``get_loss_array``, the fused batched
 log-likelihood kernel, its differentiable twin (forward and adjoint
-kernels, for DNS/AFNS and the TVλ EKF), the fused multi-start MLE
-``estimate`` and its rolling-window form ``estimate_windows``; for the
+kernels, for DNS/AFNS and the TVλ EKF), the multi-start MLE
+``estimate`` and its rolling-window form ``estimate_windows`` (fused for
+the Kalman families, and per start on the plain engines for every family:
+optax's L-BFGS and Adam, the starts in lockstep); for the
 score-driven families the scan filter, the fused value kernel and the
 ``try_initializations`` grid; the static families (OLS cross-sections and
 the random walk) and their initial proposals; the block-coordinate
-``estimate_steps`` for the Kalman, score-driven and static families; the
+``estimate_steps`` for the Kalman, score-driven and static families, with
+their Nelder–Mead, closed-form, L-BFGS and Adam groups; the
 coded engines and the failure taxonomy's ``diagnose``; the square-root
 engine "sqrt"; under
 stochastic-volatility measurement errors the particle filter, its fused

@@ -1,36 +1,37 @@
-"""Estimation on the fused kernels: the multi-start MLE ``estimate``, its
-rolling-window form ``estimate_windows``, and the block-coordinate
-``estimate_steps`` of the Kalman, score-driven and static families.
+"""Estimation: the multi-start MLE ``estimate``, its rolling-window form
+``estimate_windows``, and the block-coordinate ``estimate_steps`` of the
+Kalman, score-driven and static families.
 
-Counterpart of the fused paths of ``yieldfactormodels_jl_tpu/estimation/
-optimize.py``.  ``estimate`` runs one batched L-BFGS loop over the (S, P)
-start matrix (``batched_lbfgs``) whose Armijo probes run the value kernel
-(K1, ``ops/fused_kf``) and whose accepted points take one
-value-and-gradient through the differentiable kernels (K2f/K2b for DNS/AFNS,
-K3f/K3b for TVλ, ``ops/fused_kf_grad``), then a trust-but-verify
-re-evaluation of the winner by the plain univariate engine.
-``estimate_windows`` runs the same loop over a (windows × starts) batch
-whose rows carry their own windows.  ``estimate_steps`` alternates
-parameter groups in Nelder–Mead blocks whose every candidate batch is one
-value-kernel call: K1 for the Kalman families (whose groups are all one
-Nelder–Mead block), K4 (``ops/fused_ssd``) for the score-driven ones,
-which first evaluate the A×B initialization grid in one K4 call, and the
-batched static loss (``models/static_model``, which has no kernel) for the
-static families; the score-driven and static families solve the (δ, Φ)
-group in closed form on a fully observed window.  The winner is
-re-evaluated by the family's plain engine.  On the CPU the kernels' plain
-versions run.
+Counterpart of ``yieldfactormodels_jl_tpu/estimation/optimize.py``.
+``estimate`` has two objectives.  ``"fused"`` (the three Kalman families)
+runs one batched L-BFGS loop over the (S, P) start matrix
+(``batched_lbfgs``) whose Armijo probes run the value kernel (K1,
+``ops/fused_kf``) and whose accepted points take one value-and-gradient
+through the differentiable kernels (K2f/K2b for DNS/AFNS, K3f/K3b for TVλ,
+``ops/fused_kf_grad``), then a trust-but-verify re-evaluation of the winner
+by the plain univariate engine; a disagreement raises on the card and
+re-runs ``"vmap"`` on the CPU.
+``"vmap"`` (every family) runs each start's own L-BFGS, all starts in
+lockstep (``per_start``), on the family's plain engine, its gradient by
+autograd (through the inner score for the score-driven families).
+``estimate_windows`` runs either over a (windows × starts) batch whose rows
+carry their own windows.  ``estimate_steps`` alternates parameter groups:
+Nelder–Mead blocks whose every candidate batch is one value-kernel call —
+K1 for the Kalman families, K4 (``ops/fused_ssd``) for the score-driven
+ones, which first evaluate the A×B initialization grid in one K4 call, and
+the batched static loss (``models/static_model``, which has no kernel) for
+the static families; the (δ, Φ) group of the score-driven and static
+families in closed form on a fully observed window; and otherwise L-BFGS or
+Adam per start on the plain engine, except the score-driven L-BFGS, whose
+Armijo probes are K4 launches and whose gradients come from the scan.  The
+winner is re-evaluated by the family's plain engine.  On the CPU the
+kernels' plain versions run.
 
 What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-item: the per-start ``"vmap"`` optimizer and ``"time_sharded"`` objective,
-the Newton polish (``second_order`` / ``YFM_NEWTON``), the amortized warm
-start (``warm_start`` / ``YFM_AMORT``), the escalation ladder
-(``YFM_ESCALATE``), checkpointed ``estimate_steps``, and the gradient-based
-groups of ``estimate_steps``: L-BFGS or Adam on a Kalman or static group
-(the per-start path; a static (δ, Φ) group off the closed form, and so
-every random-walk fit), and for the score-driven families L-BFGS where the
-closed form does not apply and Adam, which need second-order autograd
-through the inner score.
+item: the ``"time_sharded"`` objective, the Newton polish (``second_order``
+/ ``YFM_NEWTON``), the amortized warm start (``warm_start`` /
+``YFM_AMORT``), the escalation ladder (``YFM_ESCALATE``) and checkpointed
+``estimate_steps``.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from ..ops import fused_kf, fused_kf_grad, fused_ssd
 from ..ops.linalg import ols_solve_columns
 from .batched_lbfgs import batched_lbfgs
 from .neldermead import nelder_mead_batched
+from .per_start import run_lbfgs, run_named
 
 #: the non-finite-loss penalty, and the threshold at/above which an objective
 #: value sits on its plateau: strictly below 1e12 because float32 rounds 1e12
@@ -64,8 +66,6 @@ PENALTY_THRESH = 0.999e12
 _FUSED_FAMILIES = ("kalman_dns", "kalman_afns", "kalman_tvl")
 
 _NOT_PORTED = {
-    "vmap": "ROADMAP.md Queue 1 item 4 (per-start optax L-BFGS, "
-            "vmapped_value_and_grad)",
     "time_sharded": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
     "second_order": "ROADMAP.md Queue 1 item 9 (ops/newton.py, the Newton "
                     "polish)",
@@ -74,9 +74,6 @@ _NOT_PORTED = {
     "ladder": "ROADMAP.md Queue 1 item 9 (robustness/ladder.py, the "
               "escalation ladder)",
     "checkpoint": "ROADMAP.md Queue 1 item 11 (orchestration/checkpoint.py)",
-    "second_order_ad": "ROADMAP.md Queue 1 item 6 (remaining: the "
-                       "gradient-based MSED groups, which need second-order "
-                       "autograd through the inner score)",
     "orchestrated": "ROADMAP.md Queue 1 item 11 (orchestration/supervisor.py, "
                     "the leased-queue driver)",
 }
@@ -150,10 +147,11 @@ def _sanitize(params):
 
 
 def _fused_check_mode() -> str:
-    """Trust-but-verify policy for the fused-kernel optimum
-    (``YFM_FUSED_CHECK``): "fallback" (the default) raises on a
-    disagreement, since the port has no per-start path to fall back to;
-    "warn" only writes the stderr line."""
+    """Trust-but-verify policy for a kernel-reported optimum
+    (``YFM_FUSED_CHECK``): after a disagreement "fallback" (the default)
+    raises on the card and re-runs the estimation on the plain engines on
+    the CPU; "warn" keeps the kernels' result and only writes the stderr
+    line."""
     return os.environ.get("YFM_FUSED_CHECK", "fallback")
 
 
@@ -172,26 +170,45 @@ def _warn_fused_disagreement(tag: str, ll_engine: float, ll_scan: float):
         f"kernel/compiler fault; YFM_FUSED_CHECK={_fused_check_mode()}\n")
 
 
-def _trust_but_verify(tag: str, spec: ModelSpec, x_raw, ll_fused: float, data,
-                      start, end):
-    """ONE plain-engine evaluation of a kernel-reported optimum (raw
-    parameters ``x_raw``), so a silent kernel fault cannot pass as a fit;
-    returns the constrained point.  A disagreement raises under the default
-    ``YFM_FUSED_CHECK=fallback``: the port has no per-start path to fall
-    back to."""
-    best = transform_params(spec, torch.as_tensor(x_raw, dtype=spec.dtype,
-                                                  device=data.device))
+def _falls_back(tag: str, spec: ModelSpec, best, ll_kernel: float, data,
+                start, end) -> bool:
+    """ONE plain-engine evaluation of a kernel-reported optimum (constrained
+    parameters ``best``), so a silent kernel fault cannot pass as a fit.
+    Under ``YFM_FUSED_CHECK=fallback`` a disagreement on CUDA data raises:
+    no path gives way to the plain engines on the card, so a kernel fault
+    fails the call.  On the CPU, where the kernels' plain versions ran, it
+    returns True and the caller re-runs on the plain engines, as the JAX
+    package does."""
     ll_scan = float(api.get_loss(spec, best, data, start, end))
-    if _fused_disagrees(ll_fused, ll_scan):
-        _warn_fused_disagreement(tag, ll_fused, ll_scan)
-        if _fused_check_mode() == "fallback":
-            raise RuntimeError(
-                f"{tag}: the fused-kernel optimum {ll_fused!r} disagrees "
-                f"with the plain engine's {ll_scan!r} by more than 0.5%; the "
-                f"port has no per-start path to fall back to "
-                f"({_NOT_PORTED['vmap']}); YFM_FUSED_CHECK=warn keeps the "
-                f"fused result")
-    return best
+    if not _fused_disagrees(ll_kernel, ll_scan):
+        return False
+    _warn_fused_disagreement(tag, ll_kernel, ll_scan)
+    if _fused_check_mode() != "fallback":
+        return False
+    if data.is_cuda:
+        raise RuntimeError(
+            f"{tag}: the kernel-reported optimum {ll_kernel!r} disagrees with "
+            f"the plain engine's {ll_scan!r} by more than 0.5% on the card; "
+            f"YFM_FUSED_CHECK=warn keeps the kernels' result")
+    return True
+
+
+def _values_and_grads(objective, X):
+    """``objective(X)`` (S,) and its gradient (S, P) by ONE autograd pass
+    over the batch's summed values: the rows are independent, so each row's
+    gradient is its own.  Non-finite gradient entries are set to 0, and a
+    gradient is 0 where the objective does not depend on X (the random
+    walk's loss has no parameter in it)."""
+    X = X.detach().requires_grad_(True)
+    with torch.enable_grad():
+        vals = objective(X)
+        grads = None
+        if vals.requires_grad:
+            (grads,) = torch.autograd.grad(vals.sum(), X, allow_unused=True)
+    if grads is None:
+        return vals.detach(), torch.zeros_like(X)
+    return vals.detach(), torch.where(torch.isfinite(grads), grads,
+                                      torch.zeros_like(grads))
 
 
 def fused_objectives(spec: ModelSpec, data, start, end, penalty=PENALTY,
@@ -232,25 +249,66 @@ def fused_objectives(spec: ModelSpec, data, start, end, penalty=PENALTY,
     return value_fn, vag
 
 
+def vmapped_value_and_grad(spec: ModelSpec, data, start, end, penalty=PENALTY):
+    """The per-start objective batched: ``X (S, P)`` raw → (values (S,) of
+    :func:`_finite_objective`, gradients (S, P) with NaN set to 0), by one
+    autograd pass over the batch on the family's plain engine — the
+    univariate Kalman filter, the score-driven scan (its inner score
+    differentiated with ``create_graph``) or the batched static loss."""
+    return lambda X: _values_and_grads(
+        lambda Y: _finite_objective(spec, data, Y, start, end, penalty), X)
+
+
+def _lane_objectives(spec: ModelSpec, data, starts, ends):
+    """(value_fn, value_and_grad) over lanes for ``per_start``: lane ``r``
+    is the plain objective on the window [starts[r], ends[r]) (numpy ints);
+    the lanes of one call that share a window are evaluated together."""
+    starts, ends = np.asarray(starts), np.asarray(ends)
+
+    def by_window(fn, X, rows):
+        r = rows.cpu().numpy()
+        wins = sorted(set(zip(starts[r].tolist(), ends[r].tolist())))
+        if len(wins) == 1:
+            return fn(X, *wins[0])
+        parts = []
+        for s, e in wins:
+            sel = torch.as_tensor(np.flatnonzero((starts[r] == s) & (ends[r] == e)),
+                                  device=X.device)
+            parts.append((sel, fn(X[sel], s, e)))
+        outs = tuple(torch.empty((X.shape[0],) + v.shape[1:], dtype=v.dtype,
+                                 device=v.device) for v in parts[0][1])
+        for sel, vals in parts:
+            for o, v in zip(outs, vals):
+                o[sel] = v
+        return outs
+
+    def value_fn(X, rows):
+        with torch.no_grad():
+            return by_window(lambda Y, s, e: (_finite_objective(spec, data, Y, s, e),),
+                             X, rows)[0]
+
+    def value_and_grad(X, rows):
+        return by_window(lambda Y, s, e: vmapped_value_and_grad(spec, data, s, e)(Y),
+                         X, rows)
+
+    return value_fn, value_and_grad
+
+
 def _resolve_objective(spec: ModelSpec, objective: str) -> str:
+    """"auto" is "fused" for the three Kalman families and "vmap" for every
+    other, as the JAX package picks on a TPU."""
     if objective not in ("auto", "fused", "vmap", "time_sharded"):
         raise ValueError(f"unknown objective {objective!r}; "
                          f"pick from ('auto', 'fused', 'vmap', "
                          f"'time_sharded')")
-    if objective in ("vmap", "time_sharded"):
+    if objective == "time_sharded":
         raise _not_ported(f"objective {objective!r}", objective)
-    if spec.family not in _FUSED_FAMILIES:
+    if objective == "auto":
+        return "fused" if spec.family in _FUSED_FAMILIES else "vmap"
+    if objective == "fused" and spec.family not in _FUSED_FAMILIES:
         raise ValueError(f"fused objective unavailable for family "
-                         f"{spec.family!r}")
-    return "fused"
-
-
-def _require_fused_family(spec: ModelSpec) -> None:
-    """Refuse ``estimate`` on a family the fused kernels do not cover: the
-    JAX package runs its per-start "vmap" objective for a static one."""
-    if spec.is_static:
-        raise _not_ported(f"estimate for family {spec.family!r}", "vmap")
-    api._require_kalman(spec)
+                         f"{spec.family!r}; use objective='vmap'")
+    return objective
 
 
 def _check_unported_knobs(second_order, warm_start) -> None:
@@ -276,15 +334,19 @@ def estimate(spec: ModelSpec, data, all_params, start=0, end=None,
              second_order=None, warm_start=None, device=None):
     """Multi-start L-BFGS MLE.  ``all_params``: (P, S) constrained starts.
 
-    All S starts run in ONE batched L-BFGS loop whose every function/gradient
-    evaluation is one launch of the fused kernels covering all starts
-    (``objective="fused"``; ``"auto"`` picks it for every Kalman family).
-    Numpy ``data`` goes to ``device`` (``None`` means CUDA); with
-    ``device="cpu"`` the kernels' plain versions run instead.
+    ``objective="fused"`` (the Kalman families; what ``"auto"`` picks for
+    them): all S starts run ONE batched L-BFGS loop whose every
+    function/gradient evaluation is one launch of the fused kernels covering
+    all starts, and the winner is re-evaluated by the plain engine; a
+    disagreement raises on the card and re-runs ``"vmap"`` on the CPU
+    (``YFM_FUSED_CHECK``).  ``"vmap"``
+    (every family; what ``"auto"`` picks for the others): each start's own
+    L-BFGS on the plain engine, all starts in lockstep.  Numpy ``data``
+    goes to ``device`` (``None`` means CUDA); with ``device="cpu"`` the
+    kernels' plain versions run instead.
 
     Returns (init_params, ll, best_params, Convergence(converged, iterations))
     for the winning start, as the JAX package does."""
-    _require_fused_family(spec)
     kind = _resolve_objective(spec, objective)
     _check_unported_knobs(second_order, warm_start)
     data = config.as_tensor(data, device, spec.dtype)
@@ -297,18 +359,27 @@ def estimate(spec: ModelSpec, data, all_params, start=0, end=None,
         all_params = all_params[:, None]
     cols = torch.as_tensor(all_params.T)  # (S, P) constrained, float64 on the host
     raw = _sanitize(untransform_params(spec, cols).numpy())
+    X0 = torch.as_tensor(raw, dtype=spec.dtype, device=dev)
 
-    value_fn, vag = fused_objectives(spec, data, start, end)
-    res = batched_lbfgs(vag, torch.as_tensor(raw, dtype=spec.dtype, device=dev),
-                        max_iters, g_tol=g_tol, f_abstol=f_abstol,
-                        invalid_above=PENALTY_THRESH, value_fn=value_fn)
+    if kind == "fused":
+        value_fn, vag = fused_objectives(spec, data, start, end)
+        res = batched_lbfgs(vag, X0, max_iters, g_tol=g_tol, f_abstol=f_abstol,
+                            invalid_above=PENALTY_THRESH, value_fn=value_fn)
+    else:
+        S = X0.shape[0]
+        res = run_lbfgs(*_lane_objectives(spec, data, [start] * S, [end] * S), X0,
+                        max_iters, g_tol, f_abstol)
     fs = res.f.double().cpu().numpy()
     xs = res.x.double().cpu().numpy()
     its = res.iters.cpu().numpy()
     convs = res.converged.cpu().numpy()
     lls = -fs
     j = int(np.nanargmax(np.where(np.isfinite(lls), lls, -np.inf)))
-    best = _trust_but_verify("estimate()", spec, xs[j], lls[j], data, start, end)
+    best = transform_params(spec, torch.as_tensor(xs[j], dtype=spec.dtype, device=dev))
+    if kind == "fused" and _falls_back("estimate()", spec, best, lls[j], data, start, end):
+        return estimate(spec, data, all_params, start, end, max_iters, g_tol, f_abstol,
+                        printing, objective="vmap", second_order=second_order,
+                        warm_start=warm_start)
     _record_report(lls, j, iters=its, converged=convs)
     if printing:
         print(f"✓ Best LL = {lls[j]} from starting point {j + 1}/{len(lls)}")
@@ -316,7 +387,7 @@ def estimate(spec: ModelSpec, data, all_params, start=0, end=None,
     # a start parked on the penalty plateau has zero clamped gradients: an
     # invalid run, not a converged one
     valid_j = np.isfinite(lls[j]) and fs[j] < PENALTY_THRESH
-    conv = Convergence(bool(convs[j]) and valid_j, int(its[j]))
+    conv = Convergence(bool(convs[j] and valid_j), int(its[j]))
     return (init.numpy(), float(lls[j]), best.detach().cpu().numpy(), conv)
 
 
@@ -324,39 +395,53 @@ def estimate_windows(spec: ModelSpec, data, raw_starts, window_starts, window_en
                      max_iters: int = 1000, g_tol: float = 1e-6,
                      f_abstol: float = 1e-6, objective: str = "auto",
                      second_order=None, warm_start=None, device=None):
-    """Re-estimate over W rolling windows × S starts in ONE batched L-BFGS.
+    """Re-estimate over W rolling windows × S starts, all (W·S) as one batch.
 
     ``raw_starts`` (S, P) unconstrained starts, shared by every window;
-    ``window_starts``/``window_ends`` (W,) the windows' [start, end).  The
-    (W·S) rows run one batched L-BFGS whose every evaluation is one launch
-    of the fused kernels with per-row windows — masked windows are exactly
-    equivalent to truncation.  The first window's best start is re-evaluated
-    by the plain engine (trust-but-verify).  Numpy ``data`` goes to
-    ``device`` (``None`` means CUDA).
+    ``window_starts``/``window_ends`` (W,) the windows' [start, end).  With
+    ``objective="fused"`` (the Kalman families' ``"auto"``) the rows run
+    one batched L-BFGS whose every evaluation is one launch of the fused
+    kernels with per-row windows — masked windows are exactly equivalent to
+    truncation — and the first window's best start is re-evaluated by the
+    plain engine; a disagreement raises on the card and re-runs ``"vmap"``
+    on the CPU (``YFM_FUSED_CHECK``).
+    With ``"vmap"`` each row runs its own L-BFGS on the plain engine, all
+    rows in lockstep.  Numpy ``data`` goes to ``device`` (``None`` means
+    CUDA).
 
     Returns (params (W, S, P) unconstrained, logliks (W, S)) as float64
     numpy arrays — higher is better; pick each window's start with argmax."""
-    _require_fused_family(spec)
-    _resolve_objective(spec, objective)
+    kind = _resolve_objective(spec, objective)
     _check_unported_knobs(second_order, warm_start)
     data = config.as_tensor(data, device, spec.dtype)
     dev = data.device
     raw = torch.as_tensor(raw_starts, dtype=spec.dtype, device=dev)
     S, Pn = raw.shape
-    ws = torch.as_tensor(window_starts, device=dev).reshape(-1)
-    we = torch.as_tensor(window_ends, device=dev).reshape(-1)
+    ws = torch.as_tensor(window_starts).reshape(-1).cpu().numpy().astype(np.int64)
+    we = torch.as_tensor(window_ends).reshape(-1).cpu().numpy().astype(np.int64)
     W = ws.shape[0]
-    value_fn, vag = fused_objectives(spec, data, 0, data.shape[1],
-                                     win_starts=ws.repeat_interleave(S),
-                                     win_ends=we.repeat_interleave(S))
-    res = batched_lbfgs(vag, raw.repeat(W, 1), max_iters, g_tol=g_tol,
-                        f_abstol=f_abstol, invalid_above=PENALTY_THRESH,
-                        value_fn=value_fn)
+    if kind == "fused":
+        value_fn, vag = fused_objectives(
+            spec, data, 0, data.shape[1],
+            win_starts=torch.as_tensor(ws, device=dev).repeat_interleave(S),
+            win_ends=torch.as_tensor(we, device=dev).repeat_interleave(S))
+        res = batched_lbfgs(vag, raw.repeat(W, 1), max_iters, g_tol=g_tol,
+                            f_abstol=f_abstol, invalid_above=PENALTY_THRESH,
+                            value_fn=value_fn)
+    else:
+        res = run_lbfgs(*_lane_objectives(spec, data, ws.repeat(S), we.repeat(S)),
+                        raw.repeat(W, 1), max_iters, g_tol, f_abstol)
     xs = res.x.double().cpu().numpy().reshape(W, S, Pn)
     lls = -res.f.double().cpu().numpy().reshape(W, S)
-    j0 = int(np.nanargmax(np.where(np.isfinite(lls[0]), lls[0], -np.inf)))
-    _trust_but_verify("estimate_windows() window 0", spec, xs[0, j0], lls[0, j0],
-                      data, int(ws[0]), int(we[0]))
+    if kind == "fused":
+        j0 = int(np.nanargmax(np.where(np.isfinite(lls[0]), lls[0], -np.inf)))
+        best = transform_params(spec, torch.as_tensor(xs[0, j0], dtype=spec.dtype,
+                                                      device=dev))
+        if _falls_back("estimate_windows() window 0", spec, best, lls[0, j0], data,
+                       int(ws[0]), int(we[0])):
+            return estimate_windows(spec, data, raw_starts, window_starts, window_ends,
+                                    max_iters, g_tol, f_abstol, objective="vmap",
+                                    second_order=second_order, warm_start=warm_start)
     return xs, lls
 
 
@@ -386,14 +471,18 @@ def _finite_objective(spec: ModelSpec, data, raw_params, start, end,
     return torch.where(torch.isfinite(v), v, torch.full_like(v, penalty))
 
 
-def _batch_loss(spec: ModelSpec, cons, data, start, end):
+def _batch_loss(spec: ModelSpec, cons, data, start, end, plain: bool = False):
     """(B,) losses of constrained draws in the spec's float type: for a
     Kalman spec the loglik from K1 (``ops/fused_kf``); for a score-driven
     spec K4 for the detached-β̄ score it implements, and the reference's
     own scan over the draw axis for a ``detach_inner_beta=False`` spec, as
     the JAX package sends such specs to its vmapped scan; for a static spec
     the batched static loss on the draws' device (the static families have
-    no kernel).  On the CPU the kernels' plain versions run."""
+    no kernel).  On the CPU the kernels' plain versions run.  ``plain``:
+    the family's plain engine instead of a kernel (the univariate filter,
+    the scan), as after a trust-but-verify disagreement."""
+    if plain:
+        return api.get_loss(spec, cons, data, start, end)
     if spec.is_kalman:
         return fused_kf._batched_loglik(spec, cons, data, start, end,
                                         dtype=spec.dtype)
@@ -405,7 +494,7 @@ def _batch_loss(spec: ModelSpec, cons, data, start, end):
 
 
 def try_initializations(spec: ModelSpec, best_params, data, max_tries: int = 0,
-                        start=0, end=None, device=None):
+                        start=0, end=None, device=None, _force_scan: bool = False):
     """A (P, S) matrix of constrained starting points.  For a score-driven
     spec: ``best_params`` and the A×B guess grid (256 candidates for
     1SSD-NNS) in ONE call of the score-driven value kernel (the plain scan
@@ -413,7 +502,8 @@ def try_initializations(spec: ModelSpec, best_params, data, max_tries: int = 0,
     candidate as the single start; for a static spec ``best_params`` and
     ``max_tries`` jittered starts (``get_new_initial_params``, seeded by the
     trial); for the random walk and a Kalman spec ``best_params`` itself.
-    Numpy ``data`` goes to ``device`` (``None`` means CUDA)."""
+    Numpy ``data`` goes to ``device`` (``None`` means CUDA); ``_force_scan``
+    evaluates the grid on the plain scan."""
     best_params = np.asarray(best_params, dtype=np.float64).reshape(-1)
     if spec.is_static and spec.family != "random_walk":
         return np.stack([best_params] + [get_new_initial_params(spec, best_params, t)
@@ -432,18 +522,19 @@ def try_initializations(spec: ModelSpec, best_params, data, max_tries: int = 0,
         end = data.shape[1]
     losses = _batch_loss(
         spec, torch.as_tensor(cands, dtype=spec.dtype, device=data.device),
-        data, start, end).double().cpu().numpy()
+        data, start, end, plain=_force_scan).double().cpu().numpy()
     best = int(np.nanargmax(np.where(np.isfinite(losses), losses, -np.inf)))
     return cands[best][:, None]
 
 
-def _neldermead_group(spec: ModelSpec, X, inds, opts, data, start, end):
+def _neldermead_group(spec: ModelSpec, X, inds, opts, data, start, end,
+                      plain: bool = False):
     """All starts' Nelder–Mead over the group ``inds`` in lockstep; every
-    candidate batch is one :func:`_batch_loss` call (K1 or K4), the
-    objective −loss with non-finite values clamped to the penalty.  On the
-    card a Kalman spec's one-candidate batches (two an iteration) replay a
-    CUDA graph of the whole evaluation (``fused_kf.LoglikGraph``).
-    Returns (X', f (S,))."""
+    candidate batch is one :func:`_batch_loss` call (K1 or K4; the plain
+    engine with ``plain``), the objective −loss with non-finite values
+    clamped to the penalty.  On the card a Kalman spec's one-candidate
+    batches (two an iteration) replay a CUDA graph of the whole evaluation
+    (``fused_kf.LoglikGraph``).  Returns (X', f (S,))."""
     S, Pn = X.shape
     idx = torch.as_tensor(inds, device=X.device)
 
@@ -452,14 +543,14 @@ def _neldermead_group(spec: ModelSpec, X, inds, opts, data, start, end):
         F = X[:, None, :].expand(S, K, Pn).clone()
         F[:, :, idx] = Xs
         v = -_batch_loss(spec, transform_params(spec, F.reshape(S * K, Pn)),
-                         data, start, end)
+                         data, start, end, plain)
         return torch.where(torch.isfinite(v), v, torch.full_like(v, PENALTY)).reshape(S, K)
 
     graph = None
 
     def batch_fun(Xs):
         nonlocal graph
-        if Xs.shape[1] > 1 or not (spec.is_kalman and Xs.is_cuda):
+        if Xs.shape[1] > 1 or plain or not (spec.is_kalman and Xs.is_cuda):
             return values(Xs)
         if graph is None:
             graph = fused_kf.LoglikGraph(values, Xs)
@@ -470,6 +561,65 @@ def _neldermead_group(spec: ModelSpec, X, inds, opts, data, start, end):
     out = X.clone()
     out[:, idx] = x
     return out, f
+
+
+def _group_objective(spec: ModelSpec, X, inds, data, start, end):
+    """The plain objective over the group ``inds`` of the (S, P) starts X:
+    ``embed(Xs, rows)`` puts the (R, k) group entries ``Xs`` into the full
+    vectors of the starts ``rows`` (all of them by default), and
+    ``value_and_grad(Xs, rows)`` is :func:`_finite_objective` there with its
+    gradient in the group, by one autograd pass.  Returns (embed,
+    value_and_grad)."""
+    idx = torch.as_tensor(inds, device=X.device)
+
+    def embed(Xs, rows=slice(None)):
+        F = X[rows].clone()
+        F[:, idx] = Xs
+        return F
+
+    def value_and_grad(Xs, rows=slice(None)):
+        return _values_and_grads(
+            lambda Y: _finite_objective(spec, data, embed(Y, rows), start, end), Xs)
+
+    return embed, value_and_grad
+
+
+def _group_opt_batched(spec: ModelSpec, X, inds, kind, opts, data, start, end):
+    """Every start's L-BFGS or Adam (``per_start.run_named``) over the group
+    ``inds``, all starts in lockstep, each on its own full vector; the
+    objective is :func:`_finite_objective` on the family's plain engine,
+    its gradient by autograd.  Returns (X', f (S,))."""
+    embed, value_and_grad = _group_objective(spec, X, inds, data, start, end)
+
+    def value_fn(Xs, rows):
+        with torch.no_grad():
+            return _finite_objective(spec, data, embed(Xs, rows), start, end)
+
+    res = run_named(kind, value_fn, value_and_grad, X[:, list(inds)], opts)
+    return embed(res.x), res.f
+
+
+def _group_opt_ssd(spec: ModelSpec, X, inds, opts, data, start, end):
+    """The L-BFGS group of a score-driven spec that K4 serves
+    (``detach_inner_beta``): ONE batched L-BFGS over all starts
+    (``batched_lbfgs``) whose every Armijo probe is one K4 launch for all
+    starts and whose accepted points take K4's values with the scan's
+    gradients (by autograd through the inner score), as the JAX package
+    splits them (its Nelder–Mead groups are :func:`_neldermead_group` on
+    K4).  Returns (X', f (S,))."""
+    embed, scan_value_and_grad = _group_objective(spec, X, inds, data, start, end)
+
+    def value_fn(Xs):
+        v = -_batch_loss(spec, transform_params(spec, embed(Xs)), data, start, end)
+        return torch.where(torch.isfinite(v), v, torch.full_like(v, PENALTY))
+
+    def value_and_grad(Xs):
+        return value_fn(Xs), scan_value_and_grad(Xs)[1]
+
+    res = batched_lbfgs(value_and_grad, X[:, list(inds)], opts["max_iters"],
+                        g_tol=opts.get("g_tol", 1e-6), f_abstol=opts.get("f_abstol", 1e-6),
+                        invalid_above=PENALTY_THRESH, value_fn=value_fn)
+    return embed(res.x), res.f
 
 
 def _msed_closed_applicable(spec: ModelSpec, inds, data, start, end) -> bool:
@@ -567,7 +717,8 @@ def _msed_closed_group(spec: ModelSpec, X, data, start, end):
 def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_iters: int = 10,
                    tol: float = 1e-8, optimizers=None, start=0, end=None,
                    max_tries: int = 0, printing: bool = False, checkpoint=None,
-                   second_order=None, warm_start=None, device=None):
+                   second_order=None, warm_start=None, device=None,
+                   _force_scan: bool = False):
     """Block-coordinate estimation over parameter groups, for the Kalman,
     score-driven and static families.
 
@@ -575,16 +726,23 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
     initialization grid replaces the starts by its best candidate (a Kalman
     spec keeps its starts); the first start is untransformed, sanitized and
     rescued (×0.95, up to 10 times) until its loss is finite; then each group
-    iteration optimizes every group embedded in the full vector — the
-    closed-form (δ, Φ) solve where it applies, Nelder–Mead with every
-    candidate batch one value-kernel call otherwise (K1 for a Kalman spec,
-    K4 for a score-driven one, the batched static loss for a static one) —
-    all starts in lockstep, until the loss
-    moves by less than ``tol``.  An objective that is non-finite everywhere
-    on the first group optimization raises; later, the start's group loop
-    stops.  The winner is re-evaluated by the family's plain engine
-    (trust-but-verify; a disagreement raises).  ``all_params`` (P, S)
-    constrained; numpy ``data`` goes to ``device`` (``None`` means CUDA).
+    iteration optimizes every group embedded in the full vector, all starts
+    in lockstep, until the loss moves by less than ``tol``: the closed-form
+    (δ, Φ) solve where it applies; Nelder–Mead with every candidate batch
+    one value-kernel call (K1 for a Kalman spec, K4 for a score-driven one,
+    the batched static loss for a static one, the scan for a
+    ``detach_inner_beta=False`` score-driven one); for a score-driven spec
+    that K4 serves, L-BFGS with K4's probes and the scan's gradients
+    (:func:`_group_opt_ssd`); else L-BFGS or Adam per start on the plain
+    engine (:func:`_group_opt_batched`).  An objective
+    that is non-finite everywhere on the first group optimization raises;
+    later, the start's group loop stops.  A winner whose loss came from a
+    kernel (K1, K4) is re-evaluated by the family's plain engine
+    (trust-but-verify); a disagreement raises on the card and re-runs the
+    whole estimation on the plain engines on the CPU (``_force_scan``;
+    ``YFM_FUSED_CHECK``).  ``all_params``
+    (P, S) constrained; numpy ``data`` goes to ``device`` (``None`` means
+    CUDA).
 
     Returns (init_params, ll, best_params, Convergence(converged,
     iterations)) for the winning start, as numpy arrays."""
@@ -603,25 +761,21 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
                      for g in group_ids}
     closed_ok = {g: _msed_closed_applicable(spec, inds_by_group[g], data, start, end)
                  for g in group_ids}
-    for g in group_ids:
-        kind, _ = _optimizer_for_group(g, table)
-        if g != "-1" and inds_by_group[g] and not closed_ok[g] and kind != "neldermead":
-            raise _not_ported(f"the {kind!r} optimizer of group {g!r} of "
-                              f"family {spec.family!r}",
-                              "second_order_ad" if spec.is_msed else "vmap")
+    use_ssd = spec.is_msed and spec.detach_inner_beta and not _force_scan
+    caller_params = all_params
 
     with torch.no_grad():
         all_params = np.asarray(all_params, dtype=np.float64)
         if all_params.ndim == 1:
             all_params = all_params[:, None]
         all_params = try_initializations(spec, all_params[:, 0], data, max_tries,
-                                         start, end)
+                                         start, end, _force_scan=_force_scan)
         raw = np.stack([_sanitize(untransform_params(spec, torch.as_tensor(c)).numpy())
                         for c in all_params.T], axis=1)  # (P, S)
 
         def loss_at(p):
             cons = transform_params(spec, torch.as_tensor(p, dtype=spec.dtype, device=dev))
-            return float(_batch_loss(spec, cons[None], data, start, end)[0])
+            return float(_batch_loss(spec, cons[None], data, start, end, _force_scan)[0])
 
         # validity rescue of the first start: only whether its loss is
         # finite matters, so the value kernel evaluates it
@@ -647,12 +801,17 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
                 inds = inds_by_group[g]
                 if g == "-1" or not inds:  # placeholder group: skipped
                     continue
+                kind, opts = _optimizer_for_group(g, table)
                 if closed_ok[g]:
                     X_new, f_g = _msed_closed_group(spec, X, data, start, end)
+                elif kind == "neldermead":
+                    X_new, f_g = _neldermead_group(spec, X, inds, opts, data, start, end,
+                                                   _force_scan)
+                elif use_ssd and kind == "lbfgs":
+                    X_new, f_g = _group_opt_ssd(spec, X, inds, opts, data, start, end)
                 else:
-                    X_new, f_g = _neldermead_group(spec, X, inds,
-                                                   _optimizer_for_group(g, table)[1],
-                                                   data, start, end)
+                    X_new, f_g = _group_opt_batched(spec, X, inds, kind, opts, data,
+                                                    start, end)
                 f_g = f_g.double().cpu().numpy()
                 obj_broken = f_g >= PENALTY_THRESH
                 if first_group_of_run:
@@ -667,8 +826,8 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
                 aborted = aborted | (obj_broken & ~done)
             active = ~done
             iters_done[active] = it + 1
-            lls = _batch_loss(spec, transform_params(spec, X), data, start,
-                              end).double().cpu().numpy()
+            lls = _batch_loss(spec, transform_params(spec, X), data, start, end,
+                              _force_scan).double().cpu().numpy()
             hit_tol = np.abs(lls - prev_ll) < tol
             converged |= active & hit_tol & ~aborted
             done = done | (active & (hit_tol | aborted))
@@ -679,8 +838,15 @@ def estimate_steps(spec: ModelSpec, data, all_params, param_groups, max_group_it
 
         best_j = int(np.argmax(np.where(np.isfinite(prev_ll), prev_ll, -np.inf)))
         X_np = X.double().cpu().numpy()
-        best = _trust_but_verify("estimate_steps()", spec, X_np[best_j], prev_ll[best_j],
-                                 data, start, end)
+        best = transform_params(spec, torch.as_tensor(X_np[best_j], dtype=spec.dtype,
+                                                      device=dev))
+        kernel_values = not _force_scan and (spec.is_kalman or use_ssd)
+        if kernel_values and _falls_back("estimate_steps()", spec, best, prev_ll[best_j],
+                                         data, start, end):
+            return estimate_steps(spec, data, caller_params, param_groups, max_group_iters,
+                                  tol, optimizers, start, end, max_tries, printing,
+                                  second_order=second_order, warm_start=warm_start,
+                                  _force_scan=True)
         init = transform_params(spec, torch.as_tensor(raw[:, best_j], dtype=spec.dtype))
     _record_report(prev_ll, best_j, iters=iters_done, converged=converged)
     if printing:

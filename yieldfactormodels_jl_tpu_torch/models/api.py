@@ -15,22 +15,12 @@ from .. import config
 from . import kalman, score_driven, static_model
 from .specs import ModelSpec
 
-#: where each engine or family that is not ported yet comes from
+#: where each engine that is not ported yet comes from
 _NOT_PORTED = {
     "assoc": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
     "slr": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
     "score_tree": "ROADMAP.md Queue 1 item 10 (parallel-in-time engines)",
 }
-_FAMILIES_ITEM = "ROADMAP.md Queue 1 item 6 (the rest of the score-driven families)"
-
-
-def _require_kalman(spec: ModelSpec):
-    """Refuse a non-Kalman spec at an entry point that covers the Kalman
-    families only so far."""
-    if not spec.is_kalman:
-        raise NotImplementedError(
-            f"this entry point is not ported to PyTorch yet for family "
-            f"{spec.family!r}; see {_FAMILIES_ITEM}")
 
 
 def _engine(spec: ModelSpec):

@@ -13,12 +13,12 @@ and float32 by default, as the reference hard-codes.
 ``run`` takes ``device=`` (``None`` means CUDA; ``config.resolve_device``):
 every estimation, filter and forecast runs there; without a card only
 ``device="cpu"`` runs, on the kernels' plain versions.  The Kalman,
-score-driven and static families run, so the reference's warm-start
-cascade does: ``run("NS")`` writes the in-sample parameters and the merged
-window databases that ``run("SD-NS")`` starts from.  What is not ported
-raises, naming its ROADMAP item: the random walk's fits ("RW", whose (δ, Φ)
-group needs the per-start L-BFGS), the leased-queue driver
-(``orchestrated=True``) and the Newton polish (``second_order``).
+score-driven and static families run, the random walk and the groups off
+the closed form included, so the reference's warm-start cascade does:
+``run("NS")`` writes the in-sample parameters and the merged window
+databases that ``run("SD-NS")`` starts from.  What is not ported raises,
+naming its ROADMAP item: the leased-queue driver (``orchestrated=True``)
+and the Newton polish (``second_order``).
 """
 
 from __future__ import annotations
